@@ -5,11 +5,14 @@
 
 Phases, each of which must pass (nothing is caught):
 
-1. card: name and power limit from nvidia-smi; the kernel build from
-   ``triangulation_in_deformable_scenes_torch/csrc`` with nvcc, timed.
-2. kernel: the damped-Cholesky CUDA kernel against its plain PyTorch version
-   on the card at dims 728 (the rigid solve), 1448 (the main path) and 4096
-   (the dense ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
+1. card and build: name and power limit from nvidia-smi; the build of every
+   source in ``triangulation_in_deformable_scenes_torch/csrc`` (one nvcc per
+   source, all started together, linked into one library), timed, with
+   ptxas's register and shared-memory lines for both kernels.
+2. kernel 1 (damped Cholesky): the CUDA kernel against its plain PyTorch
+   version on the card at dims 728 (the 240-point rigid solve), 1448 (the
+   240-point general solve), 2591 (the 861-point rigid solve) and 4096 (the
+   dense ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
    max|x|; a non-PD system must give non-finite output. Times by CUDA events
    (median of 30 after warm-up) for the kernel, the plain version and one
    ``cholesky_ex`` + ``cholesky_solve`` library call of the same function.
@@ -20,16 +23,44 @@ Phases, each of which must pass (nothing is caught):
    error against an f64 solve must lie below a limit that the kernel's own
    unrefined solution x0 (read from its workspace) exceeds, so that a kernel
    without a working refinement step fails.
-3. main path: the synthetic two-view simulation at full width (240 points,
+3. kernel 2 (block PCG): the large-N path's own first block system (the
+   pipeline's steps up to the first ``solve_pair``) at 861 points (dim 5174,
+   the reference's problem size) and 2600 points (dim 15608, the JAX
+   package's bigN scale). At CG_ITERS/CG_RTOL the kernel takes the plain
+   version's iteration count and lands within PCG_REL_TOL of max|x| and
+   within PCG_ACCURACY_FACTOR of the plain version's error against an f64
+   run; at rtol 1e-6 with the cap raised its x solves the system for two
+   right-hand sides (-g, and one that loads the global block), the residual
+   of the plain operator (in f64) at most 2 rtol ||b||, so a kernel without
+   the neighbour, global-coupling, Hg or preconditioner terms fails; at
+   rtol 0 it runs exactly the cap. The kernel's device time from
+   ``torch.profiler`` (also of the tight solve, for the time per
+   iteration; CUDA events around one call are shown beside it), the plain
+   version's by CUDA events, and the bound.
+4. main path: the synthetic two-view simulation at full width (240 points,
    tangent dim 1448; ``harness/sweep_config.py``) through
-   ``SimulationPipeline(device="cuda")`` with the launch count reset just
+   ``SimulationPipeline(device="cuda")`` with the launch counts reset just
    before and read just after; its initial and final mean 3D errors are held
    against the JAX package's CPU values below.
-4. split: one round of the same run with the LM loop's assembly, solve and
+5. split: one round of the same run with the LM loop's assembly, solve and
    cost timed between synchronizes, and one inner solve under
    ``torch.profiler`` for the device's busy and idle time.
-5. cross-device: the reduced fixture of tests/test_torch_pipeline.py on cuda
+6. cross-device: the reduced fixture of tests/test_torch_pipeline.py on cuda
    against cpu, with that test's limits.
+7. large-N main path: the same simulation at 861 points, full budget, on
+   the block-PCG backend (general solves, dim 5174) and kernel 1 (rigid
+   solves, dim 2591), counts reset just before and read just after: PCG
+   launches equal the general LM solves, kernel-1 launches at dim 2591 the
+   rigid ones; initial and final errors held against the JAX CPU values.
+   Then the split of one round at 861 points as in phase 5.
+8. bigN: ``deformable.solve_pair`` at 2600 points for 10 LM iterations (as
+   ``bench.py:636-673``) on cuda and on the port's CPU from the same first
+   state: the same accepted count, the cost within TIED_RTOL after
+   TIED_ITERS iterations and within BIGN_COST_RTOL after 10 (see the note
+   at TIED_ITERS); LM iterations per second on the card.
+9. cross-device at 861 points: the first large-N ``solve_pair`` on cuda
+   against the CPU after 1..TIED_ITERS LM iterations: the same accepted
+   count and damped-solve count, lambda and cost within TIED_RTOL.
 
 Then it prints the ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and
@@ -39,6 +70,7 @@ Reference values (``JAX_*``): the JAX package on the CPU, same fixture, seed
 and budget, produced by
 
     JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 240 --rounds 5 --evals 8 --iters 25
+    JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 861 --rounds 5 --evals 8 --iters 25
 """
 
 from __future__ import annotations
@@ -93,12 +125,54 @@ REFINE_COND = 10.0
 REFINE_UPPER_ETA = 1e-3
 REFINE_LIMIT = 1e-4
 
+# The large-N path: 861 points, tangent dim 5174 (the reference's own
+# problem, BASELINE.md:41). JAX package, CPU, seed 0, 5 rounds x 8 evals x
+# 25 iterations: n_valid 861, rounds 1, weights (1, 1, 1.78e6); the outer
+# loop keeps the initial state, so final equals initial.
+LARGE_POINTS = 861
+JAX_LARGE_N_VALID = 861
+JAX_LARGE_INITIAL_AV_ERROR_M = 0.0025431607710623793
+JAX_LARGE_FINAL_AV_ERROR_M = 0.0025431607710623793
+# The JAX package's bigN scale (bench.py:537, 636-673): 2600 points, dim 15608.
+BIGN_POINTS = 2600
+BIGN_ITERS = 10
+
+# Kernel 2 against the plain version at CG_ITERS/CG_RTOL: the same iteration
+# count, x within PCG_REL_TOL of max|x|, and the kernel's error against an
+# f64 run of the same iterations at most PCG_ACCURACY_FACTOR times the plain
+# version's. The two sum in other orders and invert the 8x8 global block by
+# Cholesky and by LU; and the first systems' 6x6 blocks are conditioned so
+# that an f32 solve lands 1.6e-4 (861 points) and 1.6e-3 (2600 points) of
+# max|x| from the f64 one (the plain version on the CPU), so two f32 solves
+# may differ by as much.
+PCG_REL_TOL = 1e-2
+PCG_ACCURACY_FACTOR = 2.0
+# A tight solve: tolerance, raised cap, and the cap run at rtol 0.
+PCG_TIGHT_RTOL = 1e-6
+PCG_TIGHT_CAP = 1000
+PCG_CAP_ITERS = 20
+# The large-N LM trajectory from the first state is sensitive to rounding:
+# each accepted step lowers the cost ~3x under damping lambda ~1e14..1e15,
+# and runs of the same solve in f32 on the card (kernel or plain), f32 on
+# the CPU and f64 on the CPU separate after 4-7 iterations (readings of
+# ``python3 chip_diagnostics.py rounding`` in PERF.md). So cuda and cpu are
+# held tightly while the runs are tied, and loosely after.
+# bigN cuda vs cpu: the same accepted count, the cost after TIED_ITERS
+# iterations within TIED_RTOL (read: 8.6e-4) and after BIGN_ITERS within
+# BIGN_COST_RTOL (read: 0.30).
+TIED_ITERS = 3
+TIED_RTOL = 1e-2
+BIGN_COST_RTOL = 0.5
+# Cross-device at 861 points: after each of 1..TIED_ITERS LM iterations the
+# same accepted and solve counts, lambda and cost within TIED_RTOL (read:
+# lambda 4.7e-5, cost 4.1e-3).
+
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 SOLVE_KERNELS = ("diag_scale_kernel", "equilibrate_kernel", "panel_kernel", "syrk_kernel",
-                 "forward_kernel", "backward_kernel", "residual_kernel")
+                 "forward_kernel", "backward_kernel", "residual_kernel", "pcg_kernel")
 
 
 def log(msg):
@@ -220,6 +294,25 @@ def time_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, reps=20):
+    """Mean device time (ms) of the CUDA kernel named ``kernel`` per call of
+    ``fn``, from ``torch.profiler`` (CUPTI kernel records): unlike CUDA
+    events around a call, it leaves out the host's enqueue time, which is
+    not small beside a kernel of tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages() if kernel in ev.key)
+    check(us > 0, f"the profiler saw no {kernel} time")
+    return us / reps / 1e3
+
+
 def bound(dim):
     """Least time for one damped solve: the factorization's dim^3/3 flops plus
     the four triangular solves and the refinement matvec (~10 dim^2), against
@@ -282,12 +375,12 @@ def kernel_phase():
     from triangulation_in_deformable_scenes_torch.ops import lm
 
     rows = {}
-    for dim in (728, 1448, 4096):
+    for dim in (728, 1448, 2591, 4096):
         H, g, lam = make_system(dim, seed=dim)
         rows[dim] = kernel_case("synthetic", torch.as_tensor(H, device="cuda"),
                                 torch.as_tensor(g, device="cuda"), lam)
 
-    data, state, hyper = _full_width_problem()
+    data, state, hyper = _first_problem(240)
     spec = deformable.MODELS[sc.sweep_config().opt_model]
     H, g = deformable.build_system("KB8", data, hyper, state, spec)
     lam = float(lm.TAU * H.diagonal().max())
@@ -365,9 +458,10 @@ def main_path_phase():
     return launches
 
 
-def _full_width_problem():
-    """The main path's first inner solve at full width: the pipeline's own
-    steps up to the first ``solve_pair`` (arap weight 1e4, the search's z0)."""
+def _first_problem(num_points, device="cuda"):
+    """The first inner solve of the simulation at ``num_points``: the
+    pipeline's own steps up to the first ``solve_pair`` (arap weight 1e4,
+    the search's z0)."""
     import numpy as np
     import torch
 
@@ -376,8 +470,8 @@ def _full_width_problem():
     from triangulation_in_deformable_scenes_torch.pipeline.simulation import SimulationPipeline
 
     cfg = sc.sweep_config()
-    pipe = SimulationPipeline(cfg, seed=0, mesh_backend=sc.MESH_BACKEND, device="cuda")
-    orig, moved = sc.sweep_points(240, 0)
+    pipe = SimulationPipeline(cfg, seed=0, mesh_backend=sc.MESH_BACKEND, device=device)
+    orig, moved = sc.sweep_points(num_points, 0)
     rng = np.random.default_rng(0)
     T1w, T2w = pipe._poses(moved[0])
     kp1, kp2, d1, d2 = pipe._simulate_observations(orig, moved, T1w, T2w, rng)
@@ -386,23 +480,24 @@ def _full_width_problem():
     s2, se2 = pipe._initial_depth_scale(p2, T2w, d2, valid)
     data = deformable.make_pair_data(
         kp1, kp2, d1, d2, valid, cfg.kb8_params, T1w, T2w, p1.cpu().numpy(), p2.cpu().numpy(),
-        mesh_backend=sc.MESH_BACKEND, scale_priors=(s1, se1**-2, s2, se2**-2), device="cuda",
+        mesh_backend=sc.MESH_BACKEND, scale_priors=(s1, se1**-2, s2, se2**-2), device=device,
     )
-    f = lambda v: torch.tensor(v, dtype=torch.float32, device="cuda")
-    state = deformable.PairState(p1=p1, p2=p2, s1=f(s1), s2=f(s2), Rg=torch.eye(3, device="cuda"),
-                                 tg=torch.zeros(3, device="cuda"))
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    state = deformable.PairState(p1=p1, p2=p2, s1=f(s1), s2=f(s2), Rg=torch.eye(3, device=device),
+                                 tg=torch.zeros(3, device=device))
     hyper = deformable.Hyper(rep_w=f(1.0), arap_w=f(1e4), depth_sigma=f(0.003), global_w=f(1.0),
                              alpha=f(1.0), beta=f(1.0))
     return data, state, hyper
 
 
-def split_phase():
-    """Where the time of the main path goes, at full width.
+def split_phase(num_points):
+    """Where the time of the simulation goes at ``num_points``.
 
-    (a) One round of the main path with a synchronize around every assembly
-    (``build_system``, ``build_system_rigid``), damped solve and cost
-    evaluation of the LM loop, timed on the host clock; the rest of the wall
-    time is the host loop (search decisions, meshing, metrics, journal).
+    (a) One round with a synchronize around every assembly
+    (``build_system``, ``build_block_system``, ``build_system_rigid``),
+    damped solve (kernel 1 or kernel 2) and cost evaluation of the LM loop,
+    timed on the host clock; the rest of the wall time is the host loop
+    (search decisions, meshing, metrics, journal).
     (b) ``torch.profiler`` (device activity only) over one inner solve of 25
     LM iterations: device time of the solve kernels and of all other
     kernels, and the device's idle share of that window.
@@ -411,8 +506,8 @@ def split_phase():
     from torch.profiler import ProfilerActivity, profile
 
     from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
-    from triangulation_in_deformable_scenes_torch.models import deformable, rigid
-    from triangulation_in_deformable_scenes_torch.ops import lm
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable, rigid
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg, lm
 
     spent = {"assembly": 0.0, "solve": 0.0, "cost": 0.0}
 
@@ -426,26 +521,27 @@ def split_phase():
             return out
         return wrapper
 
-    targets = [(deformable, "build_system", "assembly"), (rigid, "build_system_rigid", "assembly"),
-               (lm, "solve_damped_cholesky", "solve"), (deformable, "robust_cost", "cost"),
+    targets = [(deformable, "build_system", "assembly"), (block_system, "build_block_system", "assembly"),
+               (rigid, "build_system_rigid", "assembly"), (lm, "solve_damped_cholesky", "solve"),
+               (block_pcg, "pcg_block_system", "solve"), (deformable, "robust_cost", "cost"),
                (rigid, "robust_cost_rigid", "cost")]
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
     for mod, name, key in targets:
         setattr(mod, name, timed(getattr(mod, name), key))
     try:
         t0 = time.perf_counter()
-        res = run_pipeline("cuda", 240, 1, 8, 25)
+        res = run_pipeline("cuda", num_points, 1, 8, 25)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     host = wall - sum(spent.values())
-    log(f"[split] one round, synchronized: wall_s={wall:.3f} assembly_s={spent['assembly']:.3f} "
-        f"solve_s={spent['solve']:.3f} cost_s={spent['cost']:.3f} host_loop_s={host:.3f} "
-        f"lm_solves={res.stats.lm_solves}")
+    log(f"[split] {num_points} points, one round, synchronized: wall_s={wall:.3f} "
+        f"assembly_s={spent['assembly']:.3f} solve_s={spent['solve']:.3f} cost_s={spent['cost']:.3f} "
+        f"host_loop_s={host:.3f} lm_solves={res.stats.lm_solves} rigid_solves={res.stats.rigid_solves}")
 
-    data, state, hyper = _full_width_problem()
+    data, state, hyper = _first_problem(num_points)
     spec = deformable.MODELS[sc.sweep_config().opt_model]
     deformable.solve_pair("KB8", data, hyper, state, 2, spec)  # warm-up
     torch.cuda.synchronize()
@@ -464,7 +560,7 @@ def split_phase():
         else:
             other_us += dev_us
     busy = (solve_us + other_us) / 1e6
-    log(f"[split] one inner solve (25 LM iterations, {r.n_solves} solves), profiled: "
+    log(f"[split] {num_points} points, one inner solve (25 LM iterations, {r.n_solves} solves), profiled: "
         f"window_s={window:.3f} solve_device_s={solve_us / 1e6:.4f} other_device_s={other_us / 1e6:.4f} "
         f"device_idle_share={max(0.0, 1.0 - busy / window):.3f}")
     check(solve_us > 0, "the profiler saw no solve-kernel time")
@@ -489,6 +585,248 @@ def cross_device_phase():
     check(d_final < CROSS_FINAL_TOL_M, "final av error differs cuda vs cpu")
 
 
+def _block_problem(num_points):
+    """The first block system of the large-N path at ``num_points``: (sys,
+    nbr, b = -g, lam) with lam the LM loop's first damping."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable
+    from triangulation_in_deformable_scenes_torch.ops import lm
+
+    data, state, hyper = _first_problem(num_points)
+    spec = deformable.MODELS[sc.sweep_config().opt_model]
+    sys_ = block_system.build_block_system("KB8", data, hyper, state, spec)
+    b = -block_system.flat_gradient(sys_)
+    lam = lm.TAU * torch.max(block_system.diag_of(sys_))
+    return sys_, data.nbr, b, lam
+
+
+def pcg_bound(n, K, iters):
+    """Least time of one PCG solve: its inputs (D, Bt, C, Hg, nbr, b) read
+    once and x written once, against the operations of ``iters`` iterations
+    (per point: the Bt, D and both C products, the preconditioner, three
+    dots and three axpys) plus the prologue's inverses. Also returned: the
+    time to stream the operator of bench.py:553 plus Dinv once per
+    iteration, as if no cache held it."""
+    dim = 6 * n + 8
+    nbytes = 4.0 * (n * 36 + n * K * 36 + n * 48 + 64 + 2 * dim + 1) + 8.0 * n * K
+    ops = iters * n * (72.0 * K + 408.0) + n * 400.0
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    stream = iters * 4.0 * (n * K * 36 + n * 36 + n * 48 * 2 + n * K * 6 + 4 * dim + n * 36)
+    return (max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"),
+            stream / PEAK_BYTES_PER_S * 1e3)
+
+
+def pcg_case(num_points):
+    """Kernel 2 against the plain version on the large-N path's first
+    system at ``num_points``; returns its row."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    sys_, nbr, b, lam = _block_problem(num_points)
+    n, K = nbr.shape
+    dim = 6 * n + 8
+    its, rtol = deformable.CG_ITERS, deformable.CG_RTOL
+    x, k = block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+    torch.cuda.synchronize()
+    xp, kp = block_pcg.pcg_block_system_plain(sys_, nbr, b, lam, its, rtol)
+    k = int(k)
+    err = float((x - xp).abs().max())
+    rel = err / float(xp.abs().max())
+    check(bool(torch.isfinite(x).all()), f"PCG kernel output not finite (dim {dim})")
+    check(k == kp, f"PCG kernel took {k} iterations, the plain version {kp} (dim {dim})")
+    check(rel < PCG_REL_TOL, f"PCG kernel vs plain relative error {rel:.3e} (dim {dim})")
+    sys64 = block_system.BlockSystem(*(a.double() for a in sys_))
+    x64, _ = block_pcg.pcg_block_system_plain(sys64, nbr, b.double(), lam.double(), k, 0.0)
+    scale = float(x64.abs().max())
+    err_k = float((x.double() - x64).abs().max()) / scale
+    err_p = float((xp.double() - x64).abs().max()) / scale
+    check(err_k <= PCG_ACCURACY_FACTOR * err_p,
+          f"PCG kernel error vs f64 {err_k:.3e} > {PCG_ACCURACY_FACTOR} x plain {err_p:.3e} (dim {dim})")
+
+    # Tight solves: the true residual of the plain operator, in f64, for two
+    # right-hand sides: -g, and (H + lam I) x* with x* on the 8 global
+    # entries only, (diag Hg + lam)^-1/2, which loads the point-to-global
+    # coupling as -g does not.
+    xstar = torch.zeros(dim, dtype=torch.float64, device=b.device)
+    xstar[6 * n :] = torch.rsqrt(torch.diagonal(sys64.Hg) + lam.double())
+    b_global = block_system.block_matvec(sys64, nbr, xstar, lam.double()).float()
+    tight = {}
+    for label, rhs in (("-g", b), ("global", b_global)):
+        xt, kt = block_pcg.pcg_block_system_cuda(sys_, nbr, rhs, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL)
+        res = block_system.block_matvec(sys64, nbr, xt.double(), lam.double()) - rhs.double()
+        tight[label] = (int(kt), float(torch.linalg.norm(res) / torch.linalg.norm(rhs.double())))
+        check(tight[label][1] <= 2.0 * PCG_TIGHT_RTOL,
+              f"PCG kernel residual {tight[label][1]:.3e} > {2 * PCG_TIGHT_RTOL:.0e} at rtol "
+              f"{PCG_TIGHT_RTOL:.0e}, right-hand side {label} (dim {dim})")
+    kt = tight["-g"][0]
+    _, kc = block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, PCG_CAP_ITERS, 0.0)
+    check(int(kc) == PCG_CAP_ITERS, f"PCG kernel ran {int(kc)} iterations at rtol 0, cap {PCG_CAP_ITERS}")
+
+    solve = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+    event_ms = time_ms(solve)
+    ms = device_ms(solve, "pcg_kernel")
+    plain_ms = time_ms(lambda: block_pcg.pcg_block_system_plain(sys_, nbr, b, lam, its, rtol), reps=10)
+    tight_ms = device_ms(
+        lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL),
+        "pcg_kernel", reps=5)
+    bound_ms, bound_by, stream_ms = pcg_bound(n, K, k)
+    tight_bound_ms, _, tight_stream_ms = pcg_bound(n, K, kt)
+    log(f"[pcg] dim={dim} N={n} K={K} grid={block_pcg._load().tids_pcg_grid(n)} blocks "
+        f"iterations={k} (plain {kp}) max_abs_err={err:.3e} rel_err={rel:.3e} "
+        f"vs_f64: kernel={err_k:.3e} plain={err_p:.3e} tight (iterations, residual): {tight} "
+        f"cap_at_rtol0={int(kc)} "
+        f"ms={ms:.4f} (device; {event_ms:.4f} by events) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"stream_bound_ms={stream_ms:.5f} | tight_ms={tight_ms:.4f} tight_bound_ms={tight_bound_ms:.5f} "
+        f"tight_stream_bound_ms={tight_stream_ms:.5f} "
+        f"us_per_iteration={1e3 * (tight_ms - ms) / max(kt - k, 1):.2f}")
+    return dict(dim=dim, iterations=k, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def large_main_phase():
+    """The simulation at 861 points, full budget; returns the PCG launches."""
+    import numpy as np
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    total = block_pcg.iterations_total("cuda")
+    dc.LAUNCHES = 0
+    dc.LAUNCHES_BY_DIM.clear()
+    block_pcg.LAUNCHES = 0
+    block_pcg.LAUNCHES_BY_DIM.clear()
+    total.zero_()
+    t0 = time.perf_counter()
+    res = run_pipeline("cuda", LARGE_POINTS, 5, 8, 25)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pcg, dense, iters = block_pcg.LAUNCHES, dc.LAUNCHES, int(total)
+    st = res.stats
+    general = st.lm_solves - st.rigid_solves
+    rigid_dim = 3 * LARGE_POINTS + 8
+    log(f"[large] n_valid={int(res.valid.sum())} rounds={res.rounds} weights={res.weights.tolist()} "
+        f"rigid_accepted={res.rigid_accepted}")
+    log(f"[large] initial_av_error_m={res.initial.av_error!r} final_av_error_m={res.final.av_error!r} "
+        f"(JAX CPU {JAX_LARGE_INITIAL_AV_ERROR_M!r} -> {JAX_LARGE_FINAL_AV_ERROR_M!r})")
+    log(f"[large] inner_solves={st.inner_solves} lm_iterations={st.lm_iterations} lm_solves={st.lm_solves} "
+        f"(general {general}, rigid {st.rigid_solves}) pcg_launches={pcg} "
+        f"pcg_by_dim={dict(block_pcg.LAUNCHES_BY_DIM)} pcg_iterations={iters} "
+        f"mean_pcg_iterations={iters / max(pcg, 1):.2f} dense_launches={dense} "
+        f"dense_by_dim={dict(sorted(dc.LAUNCHES_BY_DIM.items()))} wall_s={wall:.3f}")
+    check(pcg > 0, "the large-N path did not launch the PCG kernel")
+    check(dense > 0, "the large-N path did not launch the damped-Cholesky kernel")
+    check(pcg == general, f"PCG launches {pcg} != general LM solves {general}")
+    check(dense == dc.LAUNCHES_BY_DIM[rigid_dim] == st.rigid_solves,
+          f"dense launches {dict(dc.LAUNCHES_BY_DIM)} != rigid LM solves {st.rigid_solves} at dim {rigid_dim}")
+    check(int(res.valid.sum()) == JAX_LARGE_N_VALID, "n_valid differs from the JAX run")
+    check(np.isfinite(res.final.av_error), "final error not finite")
+    check(abs(res.initial.av_error - JAX_LARGE_INITIAL_AV_ERROR_M) < INITIAL_TOL_M,
+          "initial av error differs from the JAX CPU value")
+    check(abs(res.final.av_error - JAX_LARGE_FINAL_AV_ERROR_M) < FINAL_REL_TOL * JAX_LARGE_FINAL_AV_ERROR_M,
+          "final av error outside the tolerance of the JAX CPU value")
+    return pcg
+
+
+def _on_cpu(nt):
+    return type(nt)(*(v.cpu() if hasattr(v, "cpu") else v for v in nt))
+
+
+def bign_phase():
+    """solve_pair at 2600 points on cuda and on the CPU from the same first
+    state, after TIED_ITERS and BIGN_ITERS LM iterations; LM iterations per
+    second on the card."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
+    from triangulation_in_deformable_scenes_torch.models import deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    data, state, hyper = _first_problem(BIGN_POINTS)
+    spec = deformable.MODELS[sc.sweep_config().opt_model]
+    cpu = (_on_cpu(data), _on_cpu(hyper), _on_cpu(state))
+    run = lambda its: deformable.solve_pair("KB8", data, hyper, state, its, spec)
+    total = block_pcg.iterations_total("cuda")
+    block_pcg.LAUNCHES = 0
+    total.zero_()
+    solves = 0
+    for its, rtol in ((TIED_ITERS, TIED_RTOL), (BIGN_ITERS, BIGN_COST_RTOL)):
+        r_gpu = run(its)
+        solves += r_gpu.n_solves
+        t0 = time.perf_counter()
+        r_cpu = deformable.solve_pair("KB8", *cpu, its, spec)
+        cpu_s = time.perf_counter() - t0
+        c_gpu, c_cpu = float(r_gpu.cost), float(r_cpu.cost)
+        d = abs(c_gpu - c_cpu) / abs(c_cpu)
+        log(f"[bigN] dim={6 * BIGN_POINTS + 8} iterations={its} cuda: accepted={r_gpu.n_accepted} "
+            f"solves={r_gpu.n_solves} cost={c_gpu!r} initial={float(r_gpu.initial_cost)!r} | "
+            f"cpu: accepted={r_cpu.n_accepted} solves={r_cpu.n_solves} cost={c_cpu!r} seconds={cpu_s:.2f} | "
+            f"cost_rel_diff={d:.3e} (limit {rtol:.0e})")
+        check(r_gpu.n_accepted == r_cpu.n_accepted, f"bigN accepted counts differ cuda vs cpu ({its} iterations)")
+        check(d < rtol, f"bigN cost differs cuda vs cpu by {d:.3e} after {its} iterations")
+        check(c_gpu < float(r_gpu.initial_cost), "bigN solve did not lower the cost")
+    launches, iters = block_pcg.LAUNCHES, int(total)
+    log(f"[bigN] pcg_launches={launches} pcg_iterations={iters} mean_pcg_iterations={iters / max(launches, 1):.2f}")
+    check(launches == solves, f"bigN PCG launches {launches} != cuda LM solves {solves}")
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run(BIGN_ITERS)
+    torch.cuda.synchronize()
+    it_s = BIGN_ITERS * reps / (time.perf_counter() - t0)
+    log(f"[bigN] lm_iters_per_s={it_s:.2f} ({reps} solves of {BIGN_ITERS} LM iterations)")
+
+
+def cross_large_phase():
+    """The first large-N solve_pair on cuda against the CPU: after each of
+    1..TIED_ITERS LM iterations the same accepted and damped-solve counts,
+    lambda and cost within TIED_RTOL."""
+    from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
+    from triangulation_in_deformable_scenes_torch.models import deformable
+
+    data, state, hyper = _first_problem(LARGE_POINTS)
+    spec = deformable.MODELS[sc.sweep_config().opt_model]
+    cpu = (_on_cpu(data), _on_cpu(hyper), _on_cpu(state))
+    for its in range(1, TIED_ITERS + 1):
+        rg = deformable.solve_pair("KB8", data, hyper, state, its, spec)
+        rc = deformable.solve_pair("KB8", *cpu, its, spec)
+        d_lam = abs(float(rg.lam) - float(rc.lam)) / abs(float(rc.lam))
+        d_cost = abs(float(rg.cost) - float(rc.cost)) / abs(float(rc.cost))
+        log(f"[cross-large] iterations={its} cuda: accepted={rg.n_accepted} solves={rg.n_solves} "
+            f"lam={float(rg.lam)!r} cost={float(rg.cost)!r} | cpu: accepted={rc.n_accepted} "
+            f"solves={rc.n_solves} lam={float(rc.lam)!r} cost={float(rc.cost)!r} | "
+            f"lam_rel={d_lam:.3e} cost_rel={d_cost:.3e}")
+        check((rg.n_accepted, rg.n_solves) == (rc.n_accepted, rc.n_solves),
+              f"schedules differ cuda vs cpu after {its} iterations")
+        check(d_lam < TIED_RTOL and d_cost < TIED_RTOL,
+              f"lambda or cost differ cuda vs cpu after {its} iterations")
+
+
+def setup():
+    """Card line and build; returns the card line."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.device import resolve_device
+    from triangulation_in_deformable_scenes_torch.ops import _nvcc
+
+    resolve_device("cuda")
+    card = card_line()
+    log(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = _nvcc.build()
+    log(f"[build] {os.path.relpath(lib, REPO)} from {len(_nvcc.sources())} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in _nvcc.BUILD_LOG.splitlines():
+        if line.startswith("==") or ("ptxas info" in line and ("Used" in line or "Compiling" in line)):
+            log(f"[build] {line.strip()}")
+    return card
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, PKG)):
         print(f"chip_smoke.py must run from a checkout that holds {PKG}/", file=sys.stderr)
@@ -500,25 +838,21 @@ def main():
         return 3
     sys.path.insert(0, REPO)
 
-    from triangulation_in_deformable_scenes_torch.device import resolve_device
-    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
-
-    resolve_device("cuda")
-    card = card_line()
-    log(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    lib = dc.build()
-    log(f"[build] {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s")
-    for line in dc.BUILD_LOG.splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
-            log(f"[build] {line.strip()}")
-
+    t_start = time.perf_counter()
+    card = setup()
     r = kernel_phase()
     refinement_phase()
+    pcg_rows = {n: pcg_case(n) for n in (LARGE_POINTS, BIGN_POINTS)}
     launches = main_path_phase()
-    split_phase()
+    split_phase(240)
     cross_device_phase()
+    pcg_launches = large_main_phase()
+    split_phase(LARGE_POINTS)
+    bign_phase()
+    cross_large_phase()
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    p = pcg_rows[LARGE_POINTS]
     print(json.dumps({"kernels": [{
         "name": "damped_cholesky",
         "route": "cuda",
@@ -531,6 +865,18 @@ def main():
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
+    }, {
+        "name": "block_pcg",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/block_pcg.cu",
+        "replaces": "triangulation_in_deformable_scenes_tpu/ops/pallas_pcg.py:221",
+        "launches": pcg_launches,
+        "max_abs_err": p["max_abs_err"],
+        "ms": p["ms"],
+        "plain_ms": p["plain_ms"],
+        "bound_ms": p["bound_ms"],
+        "bound_by": p["bound_by"],
+        "library_ms": p["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

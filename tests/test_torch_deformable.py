@@ -203,10 +203,36 @@ def test_solve_rigid_matches_jax():
         assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b)) + 1e-7
 
 
-def test_solve_pair_raises_above_dense_limit():
-    """Above DENSE_DIM_LIMIT the block-PCG backend (ROADMAP A8) is needed."""
-    n = (t_def.DENSE_DIM_LIMIT - 8) // 6 + 1
-    state = t_def.PairState(p1=torch.zeros(n, 3), p2=torch.zeros(n, 3), s1=torch.ones(()),
-                            s2=torch.ones(()), Rg=torch.eye(3), tg=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="A8"):
-        t_def.solve_pair("KB8", None, None, state, 1)
+def test_solve_pair_dispatch_matches_jax(problem, monkeypatch):
+    """use_dense_backend agrees with the JAX package's on the cases of
+    tests/test_block_system.py (dense limit and batch-wide Jacobian budget),
+    and above the dense limit solve_pair runs lm_optimize_general over
+    make_block_step, never the dense assembly."""
+    from triangulation_in_deformable_scenes_torch.models import block_system as t_bs
+
+    for n, K, batch in ((240, 32, 1), (240, 32, 16), (680, 32, 16), (1000, 32, 1)):
+        assert t_def.use_dense_backend(n, K, batch) == j_def.use_dense_backend(n, K, batch)
+    assert not t_def.use_dense_backend(861, 32)  # the reference's dim 5174
+
+    _, _, (td, ts, th) = problem
+    spec = t_def.MODELS["ARAP"]
+    steps = []
+    make_block_step = t_bs.make_block_step
+
+    def spy(*args, **kwargs):
+        steps.append(args)
+        return make_block_step(*args, **kwargs)
+
+    def no_dense(*args, **kwargs):
+        raise AssertionError("the dense assembly ran above the dense limit")
+
+    monkeypatch.setattr(t_def, "DENSE_DIM_LIMIT", 6 * ts.p1.shape[0])
+    monkeypatch.setattr(t_bs, "make_block_step", spy)
+    monkeypatch.setattr(t_def, "build_system", no_dense)
+    res = t_def.solve_pair("KB8", td, th, ts, 3, spec)
+    assert len(steps) == 1 and steps[0][4:] == (t_def.CG_ITERS, t_def.CG_RTOL)
+    want = t_lm.lm_optimize_general(
+        make_block_step("KB8", td, th, spec, t_def.CG_ITERS, t_def.CG_RTOL),
+        lambda s: t_def.robust_cost("KB8", td, th, s, spec), t_def.apply_delta_spec(spec), ts, 3)
+    assert res.n_accepted == want.n_accepted == 3
+    assert torch.equal(res.state.p1, want.state.p1) and torch.equal(res.cost, want.cost)

@@ -30,15 +30,16 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """In a fresh interpreter, import every module of the port and
-    chip_smoke.py: neither jax nor the JAX package may be loaded."""
+    """In a fresh interpreter, import every module of the port,
+    chip_smoke.py and chip_diagnostics.py: neither jax nor the JAX package
+    may be loaded."""
     mods = _port_modules()
     assert len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_diagnostics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('triangulation_in_deformable_scenes_tpu'))\n"
         "print('BAD', bad)\n"

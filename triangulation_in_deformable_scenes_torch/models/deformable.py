@@ -9,12 +9,12 @@ per-vertex rotations are frozen during the LM iterations.
 Ported here: ``ModelSpec``/``MODELS``/``model_depth_sigma`` (:51-126), the
 state and data tuples (:129-207), ``apply_delta_spec`` (:233-244), every
 residual (:247-447), ``_edge_blocks`` and ``build_system`` (:468-714),
-``build_system_jacfwd`` (:632-660), the dense branch of ``solve_pair``
-(:780-823) and ``make_pair_data`` (:964-1042). Per-edge local Jacobians come
+``build_system_jacfwd`` (:632-660), the backend dispatch and ``solve_pair``
+(:744-823) and ``make_pair_data`` (:964-1042). Per-edge local Jacobians come
 from forward-mode AD (``torch.func.jvp`` along each of the 18 coordinates an
 edge touches), the counterpart of ``jax.jacfwd`` under ``jax.vmap`` there.
-Above ``DENSE_DIM_LIMIT`` the block-PCG backend is needed, which is not
-ported yet (ROADMAP A8): ``solve_pair`` raises there.
+Above ``DENSE_DIM_LIMIT`` ``solve_pair`` runs the block-sparse backend of
+``models/block_system.py``.
 """
 
 from __future__ import annotations
@@ -311,6 +311,43 @@ def residual_vector(cam_kind: str, data: PairData, hyper: Hyper, state: PairStat
 # ---------------------------------------------------------------------------
 
 
+def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
+    """Weighted energy r [N*K] of every directed mesh-edge slot and its
+    Jacobian L [N*K, 18] over (p1_i, p2_i, p1_j, p2_j, xi), by forward-mode
+    AD of the batched edge energy; masked slots carry exact zeros."""
+    n, K = data.nbr.shape
+    dtype, dev = state.p1.dtype, state.p1.device
+    j_safe = torch.clamp(data.nbr, min=0)
+    sqrt_info_a = torch.sqrt(hyper.arap_w) * data.ntri
+    w_edge = (data.nbr_mask & data.valid[:, None] & data.valid[j_safe]).to(dtype) * sqrt_info_a
+
+    Rg0, tg0 = state.Rg, state.tg
+    ii = torch.arange(n, device=dev)[:, None].expand(n, K).reshape(-1)
+    jj = j_safe.reshape(-1)
+    Ri_e, Rj_e = data.Ri[ii], data.Ri[jj]
+    wcot_e, we = data.wcot.reshape(-1), w_edge.reshape(-1)
+
+    def local(x):  # x [NK, 18] -> [NK] weighted edge energies
+        dR, dt = lie.se3_exp(x[:, 12:18])
+        Rg, tg = lie.compose(dR, dt, Rg0, tg0)
+        energy = _mesh_edge_energy(
+            spec, x[:, 0:3], x[:, 3:6], x[:, 6:9], x[:, 9:12], Ri_e, Rj_e, wcot_e, data.area,
+            Rg, tg, hyper.alpha, hyper.beta,
+        )
+        return we * energy
+
+    x_edges = torch.cat(
+        [state.p1[ii], state.p2[ii], state.p1[jj], state.p2[jj], torch.zeros((n * K, 6), dtype=dtype, device=dev)],
+        dim=-1,
+    )
+    # One forward-mode JVP per local coordinate, vmapped over the 18
+    # coordinates (each edge's energy depends only on its own row of
+    # x_edges, so the JVP along e_k is column k of every row's Jacobian).
+    basis = torch.eye(18, dtype=dtype, device=dev)[:, None, :].expand(18, n * K, 18)
+    L = vmap(lambda v: jvp(local, (x_edges,), (v,))[1])(basis).T
+    return L, local(x_edges)
+
+
 def _edge_blocks(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
     """Per-edge local Jacobians for every edge family (``deformable.py:468-629``).
 
@@ -384,37 +421,11 @@ def _edge_blocks(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, 
     # Mesh edges (flattened [N*K]): local Jacobian over the 18 coordinates
     # each edge touches (p1_i, p2_i, p1_j, p2_j, xi).
     K = data.nbr.shape[1]
-    j_safe = torch.clamp(data.nbr, min=0)
-    i_ids = ar[:, None].expand(n, K)
-    sqrt_info_a = torch.sqrt(hyper.arap_w) * data.ntri
-    w_edge = (data.nbr_mask & data.valid[:, None] & data.valid[j_safe]).to(dtype) * sqrt_info_a
-
-    Rg0, tg0 = state.Rg, state.tg
-    ii, jj = i_ids.reshape(-1), j_safe.reshape(-1)
-    Ri_e, Rj_e = data.Ri[ii], data.Ri[jj]
-    wcot_e, we = data.wcot.reshape(-1), w_edge.reshape(-1)
-
-    def arap_local(x):  # x [NK, 18] -> [NK] weighted edge energies
-        dR, dt = lie.se3_exp(x[:, 12:18])
-        Rg, tg = lie.compose(dR, dt, Rg0, tg0)
-        energy = _mesh_edge_energy(
-            spec, x[:, 0:3], x[:, 3:6], x[:, 6:9], x[:, 9:12], Ri_e, Rj_e, wcot_e, data.area,
-            Rg, tg, hyper.alpha, hyper.beta,
-        )
-        return we * energy
-
-    x_edges = torch.cat(
-        [state.p1[ii], state.p2[ii], state.p1[jj], state.p2[jj], torch.zeros((n * K, 6), dtype=dtype, device=dev)],
-        dim=-1,
-    )
-    # Local Jacobian [NK, 1, 18]: one forward-mode JVP per local coordinate,
-    # vmapped over the 18 coordinates (each edge's energy depends only on its
-    # own row of x_edges, so the JVP along e_k is column k of every block).
-    basis = torch.eye(18, dtype=dtype, device=dev)[:, None, :].expand(18, n * K, 18)
-    L = vmap(lambda v: jvp(arap_local, (x_edges,), (v,))[1])(basis).T[:, None, :]
-    r = arap_local(x_edges)[:, None]
+    ii = ar[:, None].expand(n, K).reshape(-1)
+    jj = torch.clamp(data.nbr, min=0).reshape(-1)
+    L, r = _mesh_slot_jacobian(data, hyper, state, spec)
     idx = torch.cat([idx_p1[ii], idx_p2[ii], idx_p1[jj], idx_p2[jj], idx_xi.expand(n * K, 6)], dim=-1)
-    blocks.append((L, r, idx))
+    blocks.append((L[:, None, :], r[:, None], idx))
 
     # Depth-scale prior edges (unit edges on s1, s2).
     if spec.depth in ("scaled", "scaled_squared"):
@@ -477,15 +488,33 @@ def build_system(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, 
 # Solve entry point
 # ---------------------------------------------------------------------------
 
-# Above this tangent dimension the JAX package hands off to the block-PCG
-# backend (``deformable.py:750``), which is not ported yet (ROADMAP A8).
+# Above this tangent dimension the dense normal equations are not
+# materialized and the block-sparse PCG backend takes over
+# (``deformable.py:744-750``); the reference's own problem, dim 5174, lands
+# there.
 DENSE_DIM_LIMIT = 4096
 
+# PCG iteration cap and relative tolerance of the block backend
+# (``deformable.py:752-756``).
+CG_ITERS = 64
+CG_RTOL = 1e-2
 
-def use_dense_backend(n: int) -> bool:
-    """Backend dispatch of ``deformable.py:766-777`` for one pair: the
-    dense solve holds up to ``DENSE_DIM_LIMIT``."""
-    return _tangent_dim(n) <= DENSE_DIM_LIMIT
+# Dense-backend Jacobian budget across a batch of pairs
+# (``deformable.py:758-763``): the dense path holds J [N (6 + K) + 2, dim]
+# per pair. The JAX package sized it for a 16 GB TPU; only a batched solve
+# (``solve_pairs``, not ported) can reach it, so it is kept as it is.
+DENSE_J_BUDGET_BYTES = 2 << 30
+
+
+def use_dense_backend(n: int, K: int, batch: int = 1) -> bool:
+    """Backend dispatch (``deformable.py:766-777``): dense while the tangent
+    dim is within ``DENSE_DIM_LIMIT`` and the batch-wide Jacobian within
+    ``DENSE_J_BUDGET_BYTES``, block PCG otherwise."""
+    dim = _tangent_dim(n)
+    if dim > DENSE_DIM_LIMIT:
+        return False
+    rows = n * (6 + K) + 2
+    return batch * rows * dim * 4 <= DENSE_J_BUDGET_BYTES
 
 
 def solve_pair(
@@ -496,17 +525,24 @@ def solve_pair(
     n_iterations: int,
     spec: ModelSpec = ModelSpec(),
 ) -> lm_ops.LMResult:
-    """One ``arapOptimization`` inner solve: n_iterations of dense LM
-    (the dense branch of ``deformable.py:783-823``)."""
+    """One ``arapOptimization`` inner solve: n_iterations of LM
+    (``deformable.py:783-823``), dense equilibrated Cholesky or, above the
+    dense limits, block-sparse assembly with block-Jacobi PCG."""
+    from . import block_system
+
     n = state0.p1.shape[0]
-    if not use_dense_backend(n):
-        raise NotImplementedError(
-            f"tangent dim {_tangent_dim(n)} exceeds DENSE_DIM_LIMIT={DENSE_DIM_LIMIT}: "
-            "the block-PCG backend is ROADMAP item A8, not ported yet"
+    cost = lambda s: robust_cost(cam_kind, data, hyper, s, spec)
+    if not use_dense_backend(n, int(data.nbr.shape[-1])):
+        return lm_ops.lm_optimize_general(
+            block_system.make_block_step(cam_kind, data, hyper, spec, CG_ITERS, CG_RTOL),
+            robust_cost=cost,
+            apply_delta=apply_delta_spec(spec),
+            state0=state0,
+            n_iterations=n_iterations,
         )
     return lm_ops.lm_optimize(
         build_system=lambda s: build_system(cam_kind, data, hyper, s, spec),
-        robust_cost=lambda s: robust_cost(cam_kind, data, hyper, s, spec),
+        robust_cost=cost,
         apply_delta=apply_delta_spec(spec),
         state0=state0,
         n_iterations=n_iterations,

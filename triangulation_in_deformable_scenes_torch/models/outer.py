@@ -55,17 +55,21 @@ class OuterConfig(NamedTuple):
 
 @dataclasses.dataclass
 class SolveStats:
-    """Work counters of one outer run: inner solves (``solve_pair`` calls),
-    LM iterations that accepted a step, and damped solves (LM trials)."""
+    """Work counters of one outer run: inner solves (``solve_pair`` and
+    rigid LM calls), LM iterations that accepted a step, and damped solves
+    (LM trials), of which ``rigid_solves`` were the rigid model's."""
 
     inner_solves: int = 0
     lm_iterations: int = 0
     lm_solves: int = 0
+    rigid_solves: int = 0
 
-    def add(self, res) -> None:
+    def add(self, res, rigid: bool = False) -> None:
         self.inner_solves += 1
         self.lm_iterations += int(res.n_accepted)
         self.lm_solves += int(res.n_solves)
+        if rigid:
+            self.rigid_solves += int(res.n_solves)
 
 
 @dataclasses.dataclass

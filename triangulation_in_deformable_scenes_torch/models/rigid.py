@@ -190,7 +190,7 @@ def _solve_core(cam_kind, data, hyper, rstate0, n_iterations, spec, stats=None):
         n_iterations=n_iterations,
     )
     if stats is not None:
-        stats.add(res)
+        stats.add(res, rigid=True)
     return res.state, res.cost
 
 

@@ -1,5 +1,5 @@
 """Damped, equilibrated Cholesky solve: the hand-written CUDA kernel, its
-wrapper, its plain PyTorch version and its build.
+wrapper and its plain PyTorch version.
 
 Computes x = -(H + lam I)^-1 g exactly as
 ``triangulation_in_deformable_scenes_tpu/ops/lm.py:43-60`` does (Jacobi
@@ -18,31 +18,19 @@ bound and design.
   the kernel is held against; nothing calls it for a CUDA tensor on the
   main path.
 
-The kernel is built on first use with nvcc (plain C interface, loaded with
-ctypes) from the sources in ``csrc/`` into ``build/torch_kernels/`` at the
-root of the checkout, keyed by the source's hash.
+The kernel is built on first use with every other source of ``csrc/``
+(``ops/_nvcc.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
 from ..precision import TINY
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "damped_cholesky.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from . import _nvcc
 
 # Calls of the kernel wrapper (one per solve), in all and by system dim,
 # read by chip_smoke.py to show that the main path ran through the kernel.
@@ -52,46 +40,12 @@ LAUNCHES = 0
 LAUNCHES_BY_DIM = collections.Counter()
 
 _lib = None
-BUILD_LOG = ""
-
-
-def _nvcc() -> str:
-    """nvcc from PATH, else from the toolkit under $CUDA_HOME."""
-    path = shutil.which("nvcc")
-    if path is None:
-        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        path = cand if os.path.exists(cand) else None
-    if path is None:
-        raise RuntimeError("nvcc not found: the damped-Cholesky kernel cannot be built")
-    return path
-
-
-def build() -> str:
-    """Compile ``csrc/damped_cholesky.cu`` if its library is missing; returns
-    the library path. nvcc's output (with ``-Xptxas -v``) is kept in
-    ``BUILD_LOG``."""
-    global BUILD_LOG
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libdamped_cholesky_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC], capture_output=True, text=True
-    )
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_SRC}:\n{BUILD_LOG}")
-    os.replace(tmp, lib_path)
-    return lib_path
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = _nvcc.load()
         vp = ctypes.c_void_p
         lib.tids_damped_solve.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
         lib.tids_damped_solve.restype = ctypes.c_int
@@ -99,14 +53,6 @@ def _load():
         lib.tids_damped_solve_pad.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _lam_tensor(lam, like: torch.Tensor) -> torch.Tensor:
-    if isinstance(lam, torch.Tensor):
-        if lam.numel() != 1:
-            raise ValueError("lam must hold one value")
-        return lam.to(device=like.device, dtype=like.dtype).reshape(1).contiguous()
-    return torch.full((1,), float(lam), dtype=like.dtype, device=like.device)
 
 
 def damped_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
@@ -124,7 +70,7 @@ def damped_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
     lib = _load()
     H = H.contiguous()
     g = g.contiguous()
-    lam_t = _lam_tensor(lam, H)
+    lam_t = _nvcc.lam_tensor(lam, H)
     npad = lib.tids_damped_solve_pad(n)
     opts = dict(dtype=torch.float32, device=H.device)
     x = torch.empty(n, **opts)
