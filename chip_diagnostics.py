@@ -2,9 +2,9 @@
 """Diagnostics of the torch port on one NVIDIA card, beside chip_smoke.py.
 They print readings and check only what is stated; PERF.md cites them.
 
-    python3 chip_diagnostics.py [mutants] [rounding] [profiler]
+    python3 chip_diagnostics.py [mutants] [match_mutants] [rounding] [profiler]
 
-(no argument runs all three)
+(no argument runs all four)
 
 - ``mutants``: copies the package and chip_smoke.py into a temporary
   directory, removes one term of ``csrc/block_pcg.cu`` there (the neighbour
@@ -13,6 +13,10 @@ They print readings and check only what is stated; PERF.md cites them.
   residuals of chip_smoke.py's two right-hand sides and the check of
   ``chip_smoke.pcg_case(861)`` that fails. Exits non-zero if a broken
   kernel passes that phase.
+- ``match_mutants``: the same for kernel 3, ``csrc/match_scan.cu``: the
+  last occurrence winning a tie, a displaced best not becoming the second,
+  no window test, no octave gate, no column validity, no row flag; each must
+  fail ``chip_smoke.match_phase()``.
 - ``rounding``: ``solve_pair`` from the first state at 2600 and 861 points
   for 1..10 LM iterations, four ways: the kernel on the card, the plain PCG
   on the card, f32 on the CPU, f64 on the CPU; accepted and damped-solve
@@ -43,6 +47,15 @@ MUTANTS = {
         "for (int e = lane; e < 36; e += 32) a.Dinv[(size_t)i * 36 + e] = (e % 7 == 0) ? 1.0f : 0.0f;",
     ),
 }
+MATCH_MUTANTS = {
+    "last_occurrence": ("if (D < best) {", "if (D <= best) {"),
+    "second_not_displaced": ("        second = best;\n        best = D;", "        best = D;"),
+    "no_window": ("d2 <= rr && ", ""),
+    "no_octave_gate": ("oc >= o - 1 && oc <= o + 1", "true"),
+    "no_column_validity": ("s_valid[t] && ", ""),
+    "no_row_flag": ("    if (!ok) continue;", ""),
+}
+MATCH_PROBE = "import chip_smoke as c\nc.setup()\nc.match_phase()\n"
 PROBE = r"""
 import torch, chip_smoke as c
 from triangulation_in_deformable_scenes_torch.models import block_system as bs
@@ -61,22 +74,22 @@ c.pcg_case(861)
 """
 
 
-def mutants() -> bool:
-    """Each broken kernel must fail chip_smoke.pcg_case(861)."""
+def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
+    """Each broken kernel must fail its probe (kernel 2: chip_smoke.pcg_case(861))."""
     all_failed = True
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new) in MUTANTS.items():
+        for name, (old, new) in table.items():
             dst = os.path.join(tmp, name)
             shutil.copytree(os.path.join(c.REPO, PKG), os.path.join(dst, PKG),
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(os.path.join(c.REPO, "chip_smoke.py"), dst)
-            cu = os.path.join(dst, PKG, "csrc", "block_pcg.cu")
+            cu = os.path.join(dst, PKG, "csrc", source)
             with open(cu) as f:
                 src = f.read()
-            c.check(src.count(old) == 1, f"mutant {name}: the line to break is not in block_pcg.cu once")
+            c.check(src.count(old) == 1, f"mutant {name}: the line to break is not in {source} once")
             with open(cu, "w") as f:
                 f.write(src.replace(old, new))
-            out = subprocess.run([sys.executable, "-c", PROBE], cwd=dst, capture_output=True, text=True)
+            out = subprocess.run([sys.executable, "-c", probe], cwd=dst, capture_output=True, text=True)
             lines = [ln for ln in (out.stdout + out.stderr).splitlines()
                      if ln.startswith(("[mutant]", "FAILED"))]
             c.log(f"[mutants] {name}: exit {out.returncode}; " + " | ".join(lines))
@@ -137,12 +150,14 @@ def main(argv):
     if not torch.cuda.is_available():
         print("no CUDA device: chip_diagnostics.py runs on an NVIDIA card only", file=sys.stderr)
         return 3
-    which = argv or ["mutants", "rounding", "profiler"]
+    which = argv or ["mutants", "match_mutants", "rounding", "profiler"]
     c.setup()
     ok = True
     for name in which:
         if name == "mutants":
             ok &= mutants()
+        elif name == "match_mutants":
+            ok &= mutants("match_scan.cu", MATCH_MUTANTS, MATCH_PROBE)
         elif name == "rounding":
             rounding()
         elif name == "profiler":

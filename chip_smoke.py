@@ -10,9 +10,10 @@ Phases, each of which must pass (nothing is caught):
    source, all started together, linked into one library), timed, with
    ptxas's register and shared-memory lines for both kernels.
 2. kernel 1 (damped Cholesky): the CUDA kernel against its plain PyTorch
-   version on the card at dims 728 (the 240-point rigid solve), 1448 (the
-   240-point general solve), 2591 (the 861-point rigid solve) and 4096 (the
-   dense ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
+   version on the card at dims 377 and 746 (the sequence path's rigid and
+   general solves), 728 (the 240-point rigid solve), 1448 (the 240-point
+   general solve), 2591 (the 861-point rigid solve) and 4096 (the dense
+   ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
    max|x|; a non-PD system must give non-finite output. Times by CUDA events
    (median of 30 after warm-up) for the kernel, the plain version and one
    ``cholesky_ex`` + ``cholesky_solve`` library call of the same function.
@@ -61,6 +62,27 @@ Phases, each of which must pass (nothing is caught):
 9. cross-device at 861 points: the first large-N ``solve_pair`` on cuda
    against the CPU after 1..TIED_ITERS LM iterations: the same accepted
    count and damped-solve count, lambda and cost within TIED_RTOL.
+10. kernel 3 (the matcher's windowed Hamming top-2 scan): the CUDA kernel
+   against its plain version on the card, all three outputs (best
+   distance, first-occurrence argmin, second-best) and the matches and
+   count after the ratio test and ``_one_to_one`` bit-identical, on the
+   full-width frames' own keypoints (1000 x 1000, the sequence path's
+   call), on the JAX package's sweep sizes 1024^2..8192^2 (window 100,
+   octave 0, as bench.py:747-790), on a planted-tie case and on empty rows.
+   Device time from ``torch.profiler`` (CUDA events around the wrapper
+   beside it), the plain version's by CUDA events (median of 30 after
+   warm-up), and the bound.
+11. the sequence path: the rendered two-depth step scene at full width
+   (``harness/step_scene.py`` FULL: 1024 x 1024, 1000 features in 8
+   scales, pair preset 1024_00000_1229-1236, 5 rounds x 8 evals x 25
+   iterations) through ``SequencePipeline(device="cuda").run``, counts
+   reset just before and read just after: kernel-3 launches equal the
+   pair attempts, kernel-1 launches the damped solves; keypoints, matches,
+   triangulated points, parallax and the initial and final mean 3D errors
+   held against the JAX CPU values below. Each frame's extraction, the
+   match, ``initialize_pair`` and the refinement timed between
+   synchronizes; one warm extraction under ``torch.profiler`` for the
+   device's idle share.
 
 Then it prints the ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and
@@ -71,10 +93,15 @@ and budget, produced by
 
     JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 240 --rounds 5 --evals 8 --iters 25
     JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 861 --rounds 5 --evals 8 --iters 25
+    JAX_PLATFORMS=cpu python tests/test_torch_sequence.py --rounds 5 --evals 8 --iters 25
+
+(the last with ``--port`` gives the port's own CPU values, from which the
+``SEQ_*`` tolerances are set).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -166,6 +193,31 @@ BIGN_COST_RTOL = 0.5
 # Cross-device at 861 points: after each of 1..TIED_ITERS LM iterations the
 # same accepted and solve counts, lambda and cost within TIED_RTOL (read:
 # lambda 4.7e-5, cost 4.1e-3).
+
+# The sequence path (phase 11). JAX package, CPU, full-width step scene, 5
+# rounds x 8 evals x 25 iterations: 1000 valid keypoints in each frame, 125
+# matches, 250 map points, weights (1, 1, 1e7). The port on the CPU, the same
+# run: 1000 / 1000 keypoints, 124 matches, 248 map points, the same parallax
+# to 1e-12 deg, initial error 0.38 % and final error 0.28 % from JAX (the
+# keypoints agree; resampling flips ~1 % of level-1 descriptor bits, which
+# moves a match across the ratio test). Tolerances: ten times that spread.
+JAX_SEQ_N_VALID = (1000, 1000)
+JAX_SEQ_N_MATCHES = 125
+JAX_SEQ_N_TRIANGULATED = 250
+JAX_SEQ_PARALLAX_DEG = 2.5630764961242676
+JAX_SEQ_INITIAL_AV_ERROR_M = 0.3699426565891309
+JAX_SEQ_FINAL_AV_ERROR_M = 0.36401198483945235
+SEQ_COUNT_REL_TOL = 0.08  # matches and map points (spread: 1 of 125)
+SEQ_ERROR_REL_TOL = 0.04  # initial and final mean 3D error (spread: 0.38 %)
+# The parallax is the 51st-largest ray angle of the valid matches (2.5631 deg
+# on both CPUs): a match more or fewer above it shifts it by one rank, and
+# the neighbouring ranks lie 0.003-0.12 deg apart here (ranks 46-56 span
+# 2.39-2.75 deg, the port on the CPU); 0.15 deg admits two ranks.
+SEQ_PARALLAX_TOL_DEG = 0.15
+
+# Kernel 3 at the JAX package's sweep sizes (bench.py:747-790).
+MATCH_SWEEP = (1024, 2048, 4096, 8192)
+MATCH_SWEEP_WINDOW = 100.0
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -365,7 +417,7 @@ def kernel_case(label, Hc, gc, lam, rel_tol=KERNEL_REL_TOL):
 
 
 def kernel_phase():
-    """Synthetic well-conditioned systems at the three dims, then the main
+    """Synthetic well-conditioned systems at the main paths' dims, then the main
     path's own first system and a synthetic one at about the same condition
     number, held to an f64 solve; returns the synthetic dim-1448 row."""
     import torch
@@ -375,7 +427,7 @@ def kernel_phase():
     from triangulation_in_deformable_scenes_torch.ops import lm
 
     rows = {}
-    for dim in (728, 1448, 2591, 4096):
+    for dim in (377, 728, 746, 1448, 2591, 4096):
         H, g, lam = make_system(dim, seed=dim)
         rows[dim] = kernel_case("synthetic", torch.as_tensor(H, device="cuda"),
                                 torch.as_tensor(g, device="cuda"), lam)
@@ -807,6 +859,255 @@ def cross_large_phase():
               f"lambda or cost differ cuda vs cpu after {its} iterations")
 
 
+def match_bound(n1, n2, n_rows, n_allowed):
+    """Least time of one scan on this data: packed bits (32 bytes), position,
+    r2 or validity and octave of every key read once and the three outputs
+    written once, against a window test (8 operations) for each pair of an
+    active row and a column plus 26 operations (8 XOR, 8 popc, 7 adds, the
+    top-2 update) for each allowed pair, at the 67 T/s f32 peak rate (the
+    card's INT32 rate is half that, so the bound is generous)."""
+    nbytes = n1 * (32 + 8 + 4 + 4 + 1) + n2 * (32 + 8 + 4 + 1) + 12 * n1
+    ops = 8.0 * n_rows * n2 + 26.0 * n_allowed
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _match_inputs(kp1, d1, o1, v1, kp2, d2, o2, v2, sf):
+    """numpy arrays -> the scan's CUDA tensors (keypoints f32, bits uint8,
+    octaves int32, masks bool, scale factors f32)."""
+    import numpy as np
+    import torch
+
+    t = lambda x, dt: torch.as_tensor(np.array(x), device="cuda").to(dt)
+    f32, u8, i32, b = torch.float32, torch.uint8, torch.int32, torch.bool
+    return (t(kp1, f32), t(d1, u8), t(o1, i32), t(v1, b), t(kp2, f32), t(d2, u8), t(o2, i32), t(v2, b),
+            t(sf, f32))
+
+
+def _sweep_problem(n):
+    """The JAX package's sweep inputs at n x n (bench.py:760-768)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    kp_ref = rng.uniform(0, 700, size=(n, 2)).astype(np.float32)
+    kp_cur = rng.uniform(0, 700, size=(n, 2)).astype(np.float32)
+    d_ref = rng.integers(0, 2, size=(n, 256)).astype(np.uint8)
+    d_cur = rng.integers(0, 2, size=(n, 256)).astype(np.uint8)
+    octave = np.zeros(n, np.int32)
+    valid = np.ones(n, bool)
+    sf = (np.full(8, 1.2) ** np.arange(8)).astype(np.float32)
+    return kp_ref, d_ref, octave, valid, kp_cur, d_cur, octave, valid, sf
+
+
+def _tie_problem():
+    """Duplicated columns (first occurrence wins, second == best), two rows
+    claiming one column at one distance, a key exactly on the radius-5
+    circle, ten invalid rows and twenty invalid columns that would each be
+    some row's exact match, and many rows with no allowed column."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    n1, n2 = 300, 400
+    kp1 = rng.uniform(0, 600, size=(n1, 2)).astype(np.float32)
+    kp2 = rng.uniform(0, 600, size=(n2, 2)).astype(np.float32)
+    d1 = rng.integers(0, 2, size=(n1, 256)).astype(np.uint8)
+    d2 = rng.integers(0, 2, size=(n2, 256)).astype(np.uint8)
+    for i in range(100):
+        d2[2 * i] = d2[2 * i + 1] = d1[i]
+        kp2[2 * i] = kp1[i] + 1.0
+        kp2[2 * i + 1] = kp1[i] - 1.0
+    d1[201] = d1[200]
+    kp1[201] = kp1[200]
+    d2[250] = d1[200]
+    kp2[250] = kp1[200] + 2.0
+    kp2[251] = kp1[202] + np.float32([3.0, 4.0])
+    d2[251] = d1[202]
+    v1 = np.ones(n1, bool)
+    v1[-10:] = False
+    v2 = np.ones(n2, bool)
+    v2[-20:] = False
+    for j, i in zip(range(360, 400), list(range(290, 300)) + list(range(220, 250))):
+        d2[j] = d1[i]
+        kp2[j] = kp1[i] + 0.5
+    o1 = np.zeros(n1, np.int32)
+    o2 = rng.integers(0, 3, size=n2).astype(np.int32)
+    o2[:252] = 0
+    o2[360:] = 0
+    sf = (1.2 ** np.arange(4)).astype(np.float32)
+    return kp1, d1, o1, v1, kp2, d2, o2, v2, sf
+
+
+def match_case(label, inputs, window, max_octave, th, ratio=0.9, timed=True):
+    """Kernel 3 against its plain version on one input: the three outputs and
+    the matches after the ratio test and ``_one_to_one`` bit-identical, also
+    through ``search_for_initialization``'s dispatch; times and bound."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import match_scan as ms
+    from triangulation_in_deformable_scenes_torch.ops import matching
+
+    kp1, d1, o1, v1, kp2, d2, o2, v2, sf = inputs
+    n1, n2 = kp1.shape[0], kp2.shape[0]
+    r2, row_ok = ms.row_meta(kp1, o1, v1, sf, window, max_octave)
+    args = (kp1, r2, o1, row_ok, d1, kp2, o2, v2, d2)
+    got = ms.match_scan_cuda(*args)
+    torch.cuda.synchronize()
+    want = ms.match_scan_plain(*args)
+    for name, g, w in zip(("best_d", "best", "second_d"), got, want):
+        check(torch.equal(g, w), f"kernel 3 {name} differs from the plain version ({label})")
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+
+    def finish(out):
+        bd, b, sd = out
+        return matching._one_to_one(b, bd, (bd <= th) & (bd < sd * ratio), n2)
+
+    (mg, ng), (mw, nw) = finish(got), finish(want)
+    m_path, n_path = matching.search_for_initialization(kp1, d1, o1, v1, kp2, d2, o2, v2, sf, th=th,
+                                                        window_factor=window, ratio=ratio, max_octave=max_octave)
+    check(torch.equal(mg, mw) and int(ng) == int(nw), f"kernel 3 matches differ from the plain version ({label})")
+    check(torch.equal(m_path, mw) and int(n_path) == int(nw), f"search_for_initialization differs ({label})")
+    allowed = ((matching._window_d2(kp1, kp2) <= r2[:, None]) & matching._octave_ok(o1, o2)
+               & row_ok[:, None] & v2[None, :])
+    n_allowed, n_rows = int(allowed.sum()), int(row_ok.sum())
+    ties = int((got[0] == got[2]).logical_and(got[0] < ms.BIG).sum())
+    empty = int((got[0] == ms.BIG).sum())
+    row = dict(label=label, n1=n1, n2=n2, max_abs_err=err, n_matches=int(nw), n_allowed=n_allowed,
+               library_ms=None)
+    msg = (f"[match] {label} {n1}x{n2} bit-identical (best_d, best, second_d, matches) "
+           f"n_matches={int(nw)} active_rows={n_rows} allowed_pairs={n_allowed} ties={ties} empty_rows={empty}")
+    if timed:
+        fn = lambda: ms.match_scan_cuda(*args)
+        row["event_ms"] = time_ms(fn)
+        row["ms"] = device_ms(fn, "match_scan_kernel")
+        row["plain_ms"] = time_ms(lambda: ms.match_scan_plain(*args))
+        row["bound_ms"], row["bound_by"] = match_bound(n1, n2, n_rows, n_allowed)
+        msg += (f" ms={row['ms']:.4f} (device; {row['event_ms']:.4f} by events around the wrapper) "
+                f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
+    log(msg)
+    return row
+
+
+def match_phase():
+    """Kernel 3 on the full-width frames' own keypoints, the sweep sizes and
+    the tie / empty-row case; returns the 1000 x 1000 row."""
+    from triangulation_in_deformable_scenes_torch.harness import step_scene as ss
+    from triangulation_in_deformable_scenes_torch.pipeline import sequence as seq
+
+    cfg = ss.scene_config(ss.FULL)
+    pipe = seq.SequencePipeline(cfg, device="cuda")
+    k1, k2 = (pipe.extract(seq.to_grayscale(f[0])) for f in ss.step_frames(ss.FULL))
+    inputs = (k1.xy, k1.desc, k1.octave, k1.valid, k2.xy, k2.desc, k2.octave, k2.valid,
+              pipe._t(pipe.scale_factors))
+    path_row = match_case("frames", inputs, float(cfg.matching_init_radius), 0, float(cfg.matching_init_th))
+    for n in MATCH_SWEEP:
+        match_case("sweep", _match_inputs(*_sweep_problem(n)), MATCH_SWEEP_WINDOW, 0, 50.0)
+    match_case("ties+empty", _match_inputs(*_tie_problem()), 5.0, 0, 60.0, timed=False)
+    return path_row
+
+
+def sequence_phase():
+    """The sequence path at full width; returns the kernel-3 launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triangulation_in_deformable_scenes_torch.harness import step_scene as ss
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+    from triangulation_in_deformable_scenes_torch.ops import match_scan as ms
+    from triangulation_in_deformable_scenes_torch.ops import matching
+    from triangulation_in_deformable_scenes_torch.pipeline import sequence as seq
+
+    cfg = ss.scene_config(ss.FULL, 5, 8, 25)
+    frames = ss.step_frames(ss.FULL)
+    pipe = seq.SequencePipeline(cfg, device="cuda")
+    spent = collections.defaultdict(list)
+    n_valid = []
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    extract = pipe.extract
+
+    def extract_counted(gray):
+        kps = extract(gray)
+        n_valid.append(int(kps.valid.sum()))
+        return kps
+
+    pipe.extract = timed(extract_counted, "extract")
+    pipe.initialize_pair = timed(pipe.initialize_pair, "initialize_pair")
+    pipe._refine_and_report = timed(pipe._refine_and_report, "refine")
+    search = matching.search_for_initialization
+    matching.search_for_initialization = timed(search, "match")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ms.LAUNCHES = 0
+            dc.LAUNCHES = 0
+            dc.LAUNCHES_BY_DIM.clear()
+            t0 = time.perf_counter()
+            out = pipe.run(ss.StepSceneLoader(frames), journal_path=os.path.join(tmp, "Experiment.txt"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            scans, dense = ms.LAUNCHES, dc.LAUNCHES
+    finally:
+        matching.search_for_initialization = search
+    check(out is not None, "the sequence path triangulated no pair")
+    init, st = out["init"], out["stats"]
+    attempts = len(spent["initialize_pair"])
+    ms_of = lambda key: [round(1e3 * v, 3) for v in spent[key]]
+    log(f"[sequence] n_valid={n_valid} n_matches={init.n_matches} n_triangulated={init.n_triangulated} "
+        f"parallax_deg={init.parallax_deg!r} rounds={out['rounds']} weights={out['weights'].tolist()}")
+    log(f"[sequence] initial_av_error_m={out['initial'].av_error!r} final_av_error_m={out['final'].av_error!r} "
+        f"(JAX CPU {JAX_SEQ_INITIAL_AV_ERROR_M!r} -> {JAX_SEQ_FINAL_AV_ERROR_M!r})")
+    log(f"[sequence] pair_attempts={attempts} kernel3_launches={scans} inner_solves={st.inner_solves} "
+        f"lm_iterations={st.lm_iterations} lm_solves={st.lm_solves} (rigid {st.rigid_solves}) "
+        f"kernel1_launches={dense} by_dim={dict(sorted(dc.LAUNCHES_BY_DIM.items()))}")
+    log(f"[sequence] synchronized: phase_extract_ms={ms_of('extract')} phase_match_ms={ms_of('match')} "
+        f"initialize_pair_ms={ms_of('initialize_pair')} refine_s={sum(spent['refine']):.3f} wall_s={wall:.3f}")
+    check(scans >= 1, "the sequence path did not launch kernel 3")
+    check(scans == attempts, f"kernel-3 launches {scans} != pair attempts {attempts}")
+    check(dense > 0 and dense == st.lm_solves, f"kernel-1 launches {dense} != damped solves {st.lm_solves}")
+    check(tuple(n_valid) == JAX_SEQ_N_VALID, f"valid keypoints {n_valid} != JAX {JAX_SEQ_N_VALID}")
+    for name, got, want in (("matches", init.n_matches, JAX_SEQ_N_MATCHES),
+                            ("map points", init.n_triangulated, JAX_SEQ_N_TRIANGULATED)):
+        check(abs(got - want) <= SEQ_COUNT_REL_TOL * want, f"{name} {got} outside the tolerance of JAX {want}")
+    check(abs(init.parallax_deg - JAX_SEQ_PARALLAX_DEG) <= SEQ_PARALLAX_TOL_DEG,
+          f"parallax {init.parallax_deg} outside the tolerance of JAX {JAX_SEQ_PARALLAX_DEG}")
+    for name, got, want in (("initial", out["initial"].av_error, JAX_SEQ_INITIAL_AV_ERROR_M),
+                            ("final", out["final"].av_error, JAX_SEQ_FINAL_AV_ERROR_M)):
+        check(np.isfinite(got) and abs(got - want) <= SEQ_ERROR_REL_TOL * want,
+              f"{name} av error {got} outside the tolerance of JAX {want}")
+
+    # Warm front end: one frame's extraction and the pair's match, CUDA
+    # events (median of 10), then one extraction under torch.profiler.
+    gray = seq.to_grayscale(frames[0][0])
+    k1 = extract(gray)
+    k2 = extract(seq.to_grayscale(frames[1][0]))
+    sf = pipe._t(pipe.scale_factors)
+    extract_ms = time_ms(lambda: extract(gray), reps=10)
+    match_ms = time_ms(lambda: matching.search_for_initialization(
+        k1.xy, k1.desc, k1.octave, k1.valid, k2.xy, k2.desc, k2.octave, k2.valid, sf,
+        th=float(cfg.matching_init_th), window_factor=float(cfg.matching_init_radius)), reps=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extract(gray)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()) / 1e6
+    log(f"[sequence] warm: phase_extract_ms={extract_ms:.3f} phase_match_ms={match_ms:.3f} (events, median of 10); "
+        f"one extraction profiled: window_s={window:.4f} device_s={busy:.4f} "
+        f"device_idle_share={max(0.0, 1.0 - busy / window):.3f}")
+    check(busy > 0, "the profiler saw no device time in the extraction")
+    return scans
+
+
 def setup():
     """Card line and build; returns the card line."""
     import torch
@@ -850,6 +1151,8 @@ def main():
     split_phase(LARGE_POINTS)
     bign_phase()
     cross_large_phase()
+    m = match_phase()
+    scan_launches = sequence_phase()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     p = pcg_rows[LARGE_POINTS]
@@ -877,6 +1180,18 @@ def main():
         "bound_ms": p["bound_ms"],
         "bound_by": p["bound_by"],
         "library_ms": p["library_ms"],
+    }, {
+        "name": "match_scan",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/match_scan.cu",
+        "replaces": "triangulation_in_deformable_scenes_tpu/ops/pallas_kernels.py:156",
+        "launches": scan_launches,
+        "max_abs_err": m["max_abs_err"],
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -77,3 +77,27 @@ def test_convert_round_trips_jax_state():
         np.testing.assert_array_equal(getattr(th, name).numpy(), np.asarray(val, np.float32), name)
     back = {k: jnp.asarray(v.numpy()) for k, v in td._asdict().items()}
     np.testing.assert_array_equal(np.asarray(back["Ri"]), np.asarray(jd.Ri))
+
+
+def test_orb_pattern_is_the_ports_own_byte_identical_copy():
+    """The port loads its own orb_pattern.npy, byte for byte the JAX
+    package's table (descriptor compatibility)."""
+    from triangulation_in_deformable_scenes_torch.ops import features
+
+    mine = os.path.join(REPO, "triangulation_in_deformable_scenes_torch", "ops", "orb_pattern.npy")
+    theirs = os.path.join(REPO, "triangulation_in_deformable_scenes_tpu", "ops", "orb_pattern.npy")
+    with open(mine, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    np.testing.assert_array_equal(features._PATTERN, np.load(mine))
+
+
+def test_sequence_pipeline_without_device_raises_when_no_card():
+    from triangulation_in_deformable_scenes_torch.harness import step_scene
+    from triangulation_in_deformable_scenes_torch.pipeline.sequence import SequencePipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = step_scene.scene_config(step_scene.SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SequencePipeline(cfg)
+    SequencePipeline(cfg, device="cpu")

@@ -6,6 +6,8 @@ and its state. These helpers take the fields of the JAX package's
 numpy arrays (a NamedTuple, its ``_asdict()`` or any mapping) and return the
 port's tuples on ``device``, so both packages compute from identical inputs.
 Index fields become int64, masks bool, everything else f32.
+``keypoints_from_numpy`` does the same for the front end's ``Keypoints``
+(``ops/features.py:244-251``): octaves int32, descriptors uint8 0/1 bits.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .models.deformable import Hyper, PairData, PairState
+from .ops.features import Keypoints
 from .precision import FP
 
 _INDEX_FIELDS = {"nbr"}
@@ -53,3 +56,14 @@ def pair_state_from_numpy(src, device="cuda") -> PairState:
 
 def hyper_from_numpy(src, device="cuda") -> Hyper:
     return _convert(Hyper, src, torch.device(device))
+
+
+def keypoints_from_numpy(src, device="cuda") -> Keypoints:
+    """The JAX package's ``Keypoints`` (as numpy arrays, a NamedTuple or a
+    mapping) as the port's, on ``device``."""
+    f = _fields(src)
+    dev = torch.device(device)
+    dtypes = {"octave": torch.int32, "desc": torch.uint8, "valid": torch.bool}
+    return Keypoints(**{
+        k: torch.as_tensor(np.array(f[k]), device=dev).to(dtypes.get(k, FP)) for k in Keypoints._fields
+    })

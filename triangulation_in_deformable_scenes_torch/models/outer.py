@@ -53,6 +53,31 @@ class OuterConfig(NamedTuple):
     rigid_select: bool = True
 
 
+def outer_config(cfg) -> OuterConfig:
+    """The outer loop's settings from a pipeline ``Config``, as both
+    pipelines build them (``simulation.py:209-227``, ``sequence.py:421-439``;
+    the depth weight falls back to the simulated depth error when unset)."""
+    depth_w = cfg.sim_depth_weight if cfg.sim_depth_weight > 0 else cfg.sim_depth_error
+    return OuterConfig(
+        rep_w=cfg.opt_rep_weight,
+        global_w=cfg.opt_global_weight,
+        arap_w=cfg.opt_arap_weight,
+        alpha=cfg.opt_alpha_weight,
+        beta=cfg.opt_beta_weight,
+        depth_sigma=depth_w / 1000.0,
+        n_optimizations=cfg.n_optimizations,
+        n_opt_iterations=cfg.n_opt_iterations,
+        opt_selection=cfg.opt_selection,
+        weights_selection=cfg.opt_weights_selection,
+        nlopt_max_eval=cfg.nlopt_n_optimizations,
+        nlopt_rel_tol=cfg.nlopt_rel_tolerance,
+        nlopt_abs_tol=cfg.nlopt_abs_tolerance,
+        lower_bounds=(cfg.nlopt_rep_lower, cfg.nlopt_global_lower, cfg.nlopt_arap_lower),
+        upper_bounds=(cfg.nlopt_rep_upper, cfg.nlopt_global_upper, cfg.nlopt_arap_upper),
+        model=cfg.opt_model,
+    )
+
+
 @dataclasses.dataclass
 class SolveStats:
     """Work counters of one outer run: inner solves (``solve_pair`` and

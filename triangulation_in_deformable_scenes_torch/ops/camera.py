@@ -1,6 +1,6 @@
 """Batched camera models: Kannala-Brandt fisheye (KB8) and pinhole.
 
-Counterpart of ``triangulation_in_deformable_scenes_tpu/ops/camera.py:24-170``.
+Counterpart of ``triangulation_in_deformable_scenes_tpu/ops/camera.py:24-195``.
 Parameters layout: [fx, fy, cx, cy, k0..k3]; pinhole uses the first four.
 """
 
@@ -138,3 +138,26 @@ def unproject(kind, params, pix):
 def project_jac(kind, params, p3d):
     """Analytic d(project)/d(camera point), [..., 2, 3]."""
     return _PROJECT_JAC[kind](params, p3d)
+
+
+def undistort_points(params, distortion, pix, iters: int = 5):
+    """Radial-tangential keypoint undistortion, ``cv::undistortPoints``
+    semantics with P = K (``Frame::undistortKeys``, Frame.cc:252-277;
+    ``camera.py:172-195``). ``distortion`` = (k1, k2, p1, p2[, k3]); five
+    unrolled rounds of the fixed-point compensation iteration, as OpenCV's
+    default criteria run. Returns undistorted pixels, the shape of ``pix``."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k1, k2, p1, p2 = distortion[0], distortion[1], distortion[2], distortion[3]
+    k3 = distortion[4] if len(distortion) > 4 else 0.0
+
+    x0 = (pix[..., 0] - cx) / fx
+    y0 = (pix[..., 1] - cy) / fy
+    x, y = x0, y0
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (x0 - dx) * icdist
+        y = (y0 - dy) * icdist
+    return torch.stack([x * fx + cx, y * fy + cy], dim=-1)

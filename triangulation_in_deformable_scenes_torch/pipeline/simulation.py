@@ -185,25 +185,7 @@ class SimulationPipeline:
         journal.sim_absolute(abs0)
 
         # Depth-uncertainty quirk fallback (``simulation.py:208-209``).
-        depth_w = cfg.sim_depth_weight if cfg.sim_depth_weight > 0 else cfg.sim_depth_error
-        ocfg = outer.OuterConfig(
-            rep_w=cfg.opt_rep_weight,
-            global_w=cfg.opt_global_weight,
-            arap_w=cfg.opt_arap_weight,
-            alpha=cfg.opt_alpha_weight,
-            beta=cfg.opt_beta_weight,
-            depth_sigma=depth_w / 1000.0,
-            n_optimizations=cfg.n_optimizations,
-            n_opt_iterations=cfg.n_opt_iterations,
-            opt_selection=cfg.opt_selection,
-            weights_selection=cfg.opt_weights_selection,
-            nlopt_max_eval=cfg.nlopt_n_optimizations,
-            nlopt_rel_tol=cfg.nlopt_rel_tolerance,
-            nlopt_abs_tol=cfg.nlopt_abs_tolerance,
-            lower_bounds=(cfg.nlopt_rep_lower, cfg.nlopt_global_lower, cfg.nlopt_arap_lower),
-            upper_bounds=(cfg.nlopt_rep_upper, cfg.nlopt_global_upper, cfg.nlopt_arap_upper),
-            model=cfg.opt_model,
-        )
+        ocfg = outer.outer_config(cfg)
 
         def on_round(i, state_i, weights_i):
             journal.block_header(f"{i} / {ocfg.n_optimizations} MEASUREMENTS:")

@@ -2,6 +2,7 @@
 
 Counterpart of ``triangulation_in_deformable_scenes_tpu/utils/metrics.py``:
 ``pixels_stand_dev`` (:47-69), ``sim_absolute_errors`` (:80-101),
+``bilinear_interpolate`` (:104-122), ``real_absolute_errors`` (:125-188),
 ``relative_map_errors`` (:200-237) and ``mean_parallax_degrees`` (:240-250).
 Projections run in f32 on the device of the tensors they are given, as the
 JAX package runs them on its device; the reductions are numpy f64 on the
@@ -98,6 +99,80 @@ def sim_absolute_errors(p1, p2, valid, gt_index, original, moved) -> AbsoluteErr
         av_movement=float(mv.sum() / n_pairs),
         av_error=float(total_err / n_points),
         rmse=float(np.sqrt(total_sq / n_points)),
+    )
+
+
+def bilinear_interpolate(mat: np.ndarray, x, y) -> np.ndarray:
+    """Image bilinear lookup, parity with ``Interpolate`` (Geometry.cc:607-620)."""
+    mat = np.asarray(mat, dtype=np.float64)
+    x = np.asarray(_np(x), dtype=np.float64)
+    y = np.asarray(_np(y), dtype=np.float64)
+    x0 = np.clip(np.floor(x).astype(int), 0, mat.shape[1] - 2)
+    y0 = np.clip(np.floor(y).astype(int), 0, mat.shape[0] - 2)
+    fx = x - x0
+    fy = y - y0
+    w00 = (1 - fx) * (1 - fy)
+    w10 = fx * (1 - fy)
+    w01 = (1 - fx) * fy
+    w11 = 1 - w00 - w01 - w10
+    return (
+        mat[y0, x0] * w00
+        + mat[y0, x0 + 1] * w10
+        + mat[y0 + 1, x0] * w01
+        + mat[y0 + 1, x0 + 1] * w11
+    )
+
+
+def real_absolute_errors(ph_params, T1w, T2w, p1, p2, kp1, kp2, d1, d2, valid) -> AbsoluteErrors:
+    """Parity with ``measureRealAbsoluteMapErrors`` (``Measurements.cc:101-348``).
+
+    Ground truth back-projects the measured depths through the PINHOLE model
+    (X = unproject(kp)/z * d, lifted to world by the inverse pose); the
+    up-to-scale variant first divides the depths by the mean realised scale
+    d / z_map. Host numpy, as in JAX."""
+    valid = np.asarray(_np(valid), dtype=bool)
+    kp1v, kp2v = _np(kp1)[valid], _np(kp2)[valid]
+    p1v, p2v = _np(p1)[valid], _np(p2)[valid]
+    d1v, d2v = _np(d1)[valid], _np(d2)[valid]
+
+    fx, fy, cx, cy = np.asarray(ph_params)[:4]
+
+    def backproject(kp, d):
+        rx = (kp[:, 0] - cx) / fx
+        ry = (kp[:, 1] - cy) / fy
+        return np.stack([rx * d, ry * d, d], axis=-1)
+
+    def to_world(Xc, T):
+        R, t = _np(T[0]), _np(T[1])
+        return (Xc - t) @ R  # R^T (Xc - t)
+
+    gt1 = to_world(backproject(kp1v, d1v), T1w)
+    gt2 = to_world(backproject(kp2v, d2v), T2w)
+
+    z1 = (p1v @ _np(T1w[0]).T + _np(T1w[1]))[:, 2]
+    z2 = (p2v @ _np(T2w[0]).T + _np(T2w[1]))[:, 2]
+    scale1 = float((d1v / z1).mean())
+    scale2 = float((d2v / z2).mean())
+
+    e1 = p1v - gt1
+    e2 = p2v - gt2
+    mv = np.linalg.norm(gt1 - gt2, axis=-1)
+    n_pairs = max(len(gt1), 1)
+    n_points = 2 * n_pairs
+
+    gt1s = to_world(backproject(kp1v, d1v / scale1), T1w)
+    gt2s = to_world(backproject(kp2v, d2v / scale2), T2w)
+    up_err = (
+        np.linalg.norm(p1v - gt1s, axis=-1).sum() + np.linalg.norm(p2v - gt2s, axis=-1).sum()
+    ) / n_points
+
+    return AbsoluteErrors(
+        av_movement=float(mv.sum() / n_pairs),
+        av_error=float(
+            (np.linalg.norm(e1, axis=-1).sum() + np.linalg.norm(e2, axis=-1).sum()) / n_points
+        ),
+        rmse=float(np.sqrt(((e1**2).sum() + (e2**2).sum()) / n_points)),
+        av_up_to_scale=float(up_err),
     )
 
 
