@@ -127,6 +127,75 @@ def rounding():
             c.log(f"[rounding] {n} points, {its} iterations | " + " | ".join(out))
 
 
+def chol_profile(dims=(377, 1448, 2591), reps=20):
+    """Kernel 1's CUDA launches under ``torch.profiler`` over ``reps`` solves
+    of chip_smoke.py's synthetic system at each dim: launches and device
+    time per solve for each CUDA kernel name, and CUDA events around one
+    solve (median of 30) beside them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    for dim in dims:
+        H, g, lam = c.make_system(dim, seed=dim)
+        H, g = torch.as_tensor(H, device="cuda"), torch.as_tensor(g, device="cuda")
+        lam = torch.tensor(lam, dtype=torch.float32, device="cuda")
+        solve = lambda: dc.damped_solve_cuda(H, g, lam)
+        event_ms = c.time_ms(solve)
+        solve()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                solve()
+            torch.cuda.synchronize()
+        rows = sorted(((ev.key, ev.count / reps, ev.self_device_time_total / reps)
+                       for ev in prof.key_averages() if ev.self_device_time_total > 0), key=lambda r: -r[2])
+        total_us = sum(r[2] for r in rows)
+        c.log(f"[chol_profile] dim={dim} events_ms={event_ms:.4f} device_ms={total_us / 1e3:.4f} "
+              f"launches_per_solve={sum(r[1] for r in rows):g} | "
+              + " | ".join(f"{k}: {n:g} x, {us / 1e3:.4f} ms" for k, n, us in rows))
+        phases = chol_phases(H, g, lam, reps)
+        nb = -(-dim // 32)
+        c.log(f"[chol_phases] dim={dim} panels={nb} median ms of {reps} solves: "
+              + " ".join(f"{k}={v:.4f}" for k, v in phases.items())
+              + f" us_per_panel={1e3 * phases['factorization'] / nb:.2f}")
+
+
+CHOL_PHASES = ("set-up", "factorization", "solve_pair_1", "residual", "solve_pair_2")
+
+
+def chol_phases(H, g, lam, reps):
+    """Median time (ms) of each phase of kernel 1's one launch, from the
+    globaltimer stamps that block 0 writes at the phase ends
+    (``tids_damped_solve_timed``), and their sum."""
+    import statistics
+
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    lib = dc._load()
+    n = H.shape[0]
+    npad = lib.tids_damped_solve_pad(n)
+    o = dict(dtype=torch.float32, device=H.device)
+    x, L, Linv, vecs = torch.empty(n, **o), torch.empty(npad * npad, **o), torch.empty(npad * 32, **o), \
+        torch.empty(4, npad, **o)
+    stamps = torch.zeros(len(CHOL_PHASES) + 1, dtype=torch.int64, device=H.device)
+    spans = []
+    for _ in range(reps + 1):
+        err = lib.tids_damped_solve_timed(
+            H.data_ptr(), g.data_ptr(), lam.data_ptr(), x.data_ptr(), n, L.data_ptr(), Linv.data_ptr(),
+            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), stamps.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        c.check(err == 0, f"timed kernel call failed: cudaError_t {err}")
+        spans.append(torch.diff(stamps).cpu().tolist())
+    spans = spans[1:]
+    out = {name: statistics.median(s[i] for s in spans) / 1e6 for i, name in enumerate(CHOL_PHASES)}
+    out["total"] = statistics.median(sum(s) for s in spans) / 1e6
+    return out
+
+
 def profiler():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -162,6 +231,8 @@ def main(argv):
             rounding()
         elif name == "profiler":
             profiler()
+        elif name == "chol_profile":
+            chol_profile()
         else:
             print(f"unknown diagnostic {name!r}", file=sys.stderr)
             return 2

@@ -223,8 +223,9 @@ MATCH_SWEEP_WINDOW = 100.0
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-SOLVE_KERNELS = ("diag_scale_kernel", "equilibrate_kernel", "panel_kernel", "syrk_kernel",
-                 "forward_kernel", "backward_kernel", "residual_kernel", "pcg_kernel")
+SOLVE_KERNELS = ("damped_solve_kernel", "pcg_kernel")
+# Kernel 1 repeated on one input: every output bit-identical.
+REPEATS = 20
 
 
 def log(msg):
@@ -365,6 +366,22 @@ def device_ms(fn, kernel, reps=20):
     return us / reps / 1e3
 
 
+def device_launches(fn, reps=20):
+    """CUDA kernel launches per call of ``fn`` and their device time (ms) per
+    call, by kernel name, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: (ev.count / reps, ev.self_device_time_total / reps / 1e3)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0}
+
+
 def bound(dim):
     """Least time for one damped solve: the factorization's dim^3/3 flops plus
     the four triangular solves and the refinement matvec (~10 dim^2), against
@@ -392,6 +409,14 @@ def kernel_case(label, Hc, gc, lam, rel_tol=KERNEL_REL_TOL):
     rel = err / float(xp.abs().max())
     check(bool(torch.isfinite(x).all()), f"kernel output not finite ({label})")
     check(rel_tol is None or rel < rel_tol, f"kernel vs plain relative error {rel:.3e} ({label})")
+    solve = lambda: dc.damped_solve_cuda(Hc, gc, lam_t)
+    for _ in range(REPEATS):
+        check(torch.equal(solve(), x), f"a repeated call is not bit-identical ({label}, dim {dim})")
+    launches = device_launches(solve)
+    per_solve = sum(count for count, _ in launches.values())
+    check(per_solve == 1 and all("damped_solve_kernel" in name for name in launches),
+          f"one solve issued {launches} ({label}, dim {dim}), not one damped_solve_kernel launch")
+    device_ms = sum(ms for _, ms in launches.values())
 
     Hbad = Hc.clone()
     Hbad[dim // 3, dim // 3] = -float(Hc[dim // 3, dim // 3]) - 1.0
@@ -405,14 +430,15 @@ def kernel_case(label, Hc, gc, lam, rel_tol=KERNEL_REL_TOL):
         Lf, _ = torch.linalg.cholesky_ex(A)
         return torch.cholesky_solve(-gc[:, None], Lf)
 
-    ms = time_ms(lambda: dc.damped_solve_cuda(Hc, gc, lam_t))
+    ms = time_ms(solve)
     plain_ms = time_ms(lambda: dc.solve_damped_cholesky_plain(Hc, gc, lam_t))
     library_ms = time_ms(library)
     bound_ms, bound_by = bound(dim)
-    log(f"[kernel] {label} dim={dim} max_abs_err={err:.3e} rel_err={rel:.3e} non_pd=non-finite "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by})")
-    return dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+    log(f"[kernel] {label} dim={dim} grid={dc._load().tids_damped_solve_grid(dim)} blocks "
+        f"max_abs_err={err:.3e} rel_err={rel:.3e} non_pd=non-finite repeats={REPEATS} bit-identical "
+        f"launches_per_solve={per_solve:g} ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+    return dict(max_abs_err=err, rel_err=rel, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 

@@ -128,8 +128,10 @@ def test_wrapper_rejects_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [300, 728, 1448])
+@pytest.mark.parametrize("dim", [1, 31, 32, 33, 300, 377, 728, 746, 1000, 1448, 2591])
 def test_cuda_kernel_matches_plain(dim):
+    """Tile edges (the dim is padded to a multiple of 32) and the main paths'
+    dims; a non-PD system gives non-finite output, without a hang or a raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     H, g, lam = make_system(dim, seed=4)
@@ -153,3 +155,16 @@ def test_cuda_kernel_refines_against_the_whole_matrix():
     want = -np.linalg.solve(H.astype(np.float64), g.astype(np.float64))
     got = dc.damped_solve_cuda(torch.as_tensor(H, device="cuda"), torch.as_tensor(g, device="cuda"), 0.0)
     assert rel_err(got.cpu(), want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeats_bit_identical():
+    """No atomics and fixed summation orders: 20 calls on one input give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    H, g, lam = make_system(1448, seed=6)
+    Hc, gc = torch.as_tensor(H, device="cuda"), torch.as_tensor(g, device="cuda")
+    first = dc.damped_solve_cuda(Hc, gc, lam)
+    for _ in range(20):
+        assert torch.equal(dc.damped_solve_cuda(Hc, gc, lam), first)

@@ -23,229 +23,496 @@
 // Bound on an H100 SXM (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s):
 // the factorization is dim^3/3 FMA-counted flops -- at dim 1448 about
 // 1.0 GFLOP against 8.4 MB of H read, so the solve is compute-bound at about
-// 15 us; at 4096 about 23 GFLOP, 0.34 ms; at 728 about 0.13 GFLOP, 2 us,
-// where the launch latency of the panel sequence decides instead.
+// 15 us; at 4096 about 23 GFLOP, 0.34 ms; at 728 about 0.13 GFLOP, 2 us.
+// What decides the time instead is the chain of dim/32 dependent panels and
+// the four triangular solves, each a chain of dim/32 dependent steps.
 //
-// Design. The dim is padded to a multiple of T = 32 (identity on the padded
-// diagonal, zero right-hand side, so padded solution rows are exactly 0).
-// Per panel k there are two launches:
-//   * panel_kernel: NB - k blocks of 32x32 threads. Every block factors the
-//     32x32 diagonal tile in shared memory and inverts it (cheap, and it
-//     saves a launch); block 0 stores the factor and the inverse, block b>0
-//     computes the panel tile L_{k+b,k} = A_{k+b,k} Linv_k^T.
-//   * syrk_kernel: one 32x32-thread block per lower tile of the trailing
-//     matrix, A_ij -= L_ik L_jk^T with both panel tiles staged in shared
-//     memory and f32 FMA.
-// The substitutions run in one block each (sequential over the 32-row
-// blocks, reusing the stored diagonal inverses as the Pallas kernel does),
-// with the right-hand side kept in shared memory; the refinement matvec is a
-// warp-per-row kernel over H. At dim 1448 that is 98 launches. The panel
-// chain is latency-bound, not FLOP-bound: a persistent single launch,
-// wgmma/TMA tiles and CUDA graphs are the way to the bound, in later work.
+// Design: ONE cooperative persistent launch per solve (grid = the
+// co-resident maximum, or one block per lower tile if that is fewer; 256
+// threads a block), phases separated by grid.sync(). The dim is padded to a
+// multiple of T = 32 (identity on the padded diagonal, zero right-hand side,
+// so padded solution rows are exactly 0).
+//   * set-up: s and b = -g s; the lower tiles of s A s into the workspace
+//     (each tile recomputes its own 64 scales, which saves a sync).
+//   * panel k: every block that holds a panel tile (k..NB-1, k) factors the
+//     diagonal tile itself in ONE WARP, in registers (lane r holds row r; the
+//     pivot by __shfl_sync, the column by shared-memory broadcasts) and
+//     inverts it the same way (lane c forms column c of Linv_k), so no block
+//     waits for another; block 0 stores L_kk and Linv_k, the others
+//     L_ik = A_ik Linv_k^T, and also its transpose into the upper tile (k, i),
+//     which the upper triangle of the workspace otherwise does not use.
+//     grid.sync().
+//   * trailing update A_ij -= L_ik L_jk^T (k < j <= i), grid-stride over the
+//     lower tiles: both panel tiles staged in padded shared memory by
+//     cp.async, the next job's while this one computes; each thread forms a
+//     2x2 register micro-tile with 16-byte shared-memory reads. grid.sync().
+//   * the triangular solves in block 0 (the others wait at the next sync),
+//     right-looking over 32-row blocks with the right-hand side in shared
+//     memory: row block k of the workspace holds L[k, 0:k] left of the
+//     diagonal and L[k+1:, k]^T right of it, so the forward solve reads the
+//     right part and the backward solve the left part, both as coalesced
+//     columns. The diagonal blocks go through the stored inverses (as the
+//     Pallas kernel does); the next inverse comes by cp.async and the first
+//     two rows' strips into registers before each step's barrier.
+//   * the refinement residual (-g - A x0) s, one warp per row over all
+//     blocks, between two grid.sync(); then the second pair of solves.
+// Every block reaches every grid.sync(): there is no data-dependent exit, so
+// a NaN pivot gives NaN output and no hang. No atomics, every sum in a fixed
+// order: repeated calls give bit-identical output. f32 FMA only, no tensor
+// cores (TF32 would break the accuracy held on the main path's systems).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int T = 32;  // tile edge
+constexpr int T = 32;                  // tile edge
+constexpr int THREADS = 256;           // threads per block
+constexpr int TS = T + 4;              // shared row stride of a staged tile: 16-byte rows, no conflicts
+constexpr int TILE = T * TS;           // floats of one staged tile
+constexpr int FACTOR_FLOATS = 6 * TILE + T * T;  // P0 Q0 P1 Q1 Lr Inv, LsT
+constexpr int NSTAMPS = 6;
+constexpr float TINY = 1e-30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Args {
+  const float* H;   // [n, n]
+  const float* g;   // [n]
+  const float* lam; // [1]
+  float* x;         // [n] out
+  float* L;         // [npad, npad] workspace: lower tiles L, upper tiles L^T
+  float* Linv;      // [NB, T, T] inverses of the diagonal tiles
+  float* s;         // [npad] scales
+  float* b;         // [npad] right-hand side
+  float* y;         // [npad] last forward solve
+  float* x0;        // [npad] unrefined solution
+  unsigned long long* stamps;  // [NSTAMPS] phase ends (globaltimer ns), or null
+  int n, npad, NB;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-// s_i = rsqrt(max(H_ii + lam, 1e-30)); b_i = -g_i s_i. Padded rows: s = 1, b = 0.
-__global__ void diag_scale_kernel(const float* __restrict__ H, int n, int npad,
-                                  const float* __restrict__ g, const float* __restrict__ lam,
-                                  float* __restrict__ s, float* __restrict__ b) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npad) return;
-  if (i < n) {
-    float a = H[(size_t)i * n + i] + lam[0];
-    float si = rsqrtf(fmaxf(a, 1e-30f));
-    s[i] = si;
-    b[i] = -g[i] * si;
-  } else {
-    s[i] = 1.0f;
-    b[i] = 0.0f;
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Lower tiles of As = s (H + lam I) s into the workspace; identity on padding.
-__global__ void equilibrate_kernel(const float* __restrict__ H, int n, int npad,
-                                   const float* __restrict__ lam, const float* __restrict__ s,
-                                   float* __restrict__ L) {
-  int bi = blockIdx.y, bj = blockIdx.x;
-  if (bj > bi) return;
-  int i = bi * T + threadIdx.y;
-  int j = bj * T + threadIdx.x;
-  float v;
-  if (i < n && j < n) {
-    float a = H[(size_t)i * n + j] + (i == j ? lam[0] : 0.0f);
-    v = (a * s[i]) * s[j];
-  } else {
-    v = (i == j) ? 1.0f : 0.0f;
-  }
-  L[(size_t)i * npad + j] = v;
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-// Factor the diagonal tile k (every block, in shared memory), invert it, and
-// write either the factor and inverse (block 0) or one panel tile (block b>0).
-__global__ void __launch_bounds__(1024) panel_kernel(float* __restrict__ L, float* __restrict__ Linv, int npad, int k) {
-  __shared__ float D[T][T + 1];
-  __shared__ float Inv[T][T + 1];
-  __shared__ float P[T][T + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const size_t kk = (size_t)k * T;
-  D[ty][tx] = L[(kk + ty) * npad + kk + tx];
-  const int b = blockIdx.x;
-  if (b > 0) P[ty][tx] = L[(kk + (size_t)b * T + ty) * npad + kk + tx];
-  __syncthreads();
-
-  // Unblocked right-looking Cholesky of D (lower triangle only).
-  for (int j = 0; j < T; ++j) {
-    const float ljj = sqrtf(D[j][j]);
-    float upd = 0.0f;
-    const bool in_trail = (ty > j) && (tx > j) && (tx <= ty);
-    if (in_trail) upd = (D[ty][j] / ljj) * (D[tx][j] / ljj);
-    __syncthreads();
-    if (in_trail) D[ty][tx] -= upd;
-    if (tx == j && ty >= j) D[ty][j] = (ty == j) ? ljj : D[ty][j] / ljj;
-    __syncthreads();
-  }
-
-  // Inv = D^-1 by forward substitution, one column per thread of warp 0.
-  if (ty == 0) {
-    const int c = tx;
-    for (int r = 0; r < T; ++r) {
-      float acc = (r == c) ? 1.0f : 0.0f;
-      for (int m = c; m < r; ++m) acc -= D[r][m] * Inv[m][c];
-      Inv[r][c] = (r < c) ? 0.0f : acc / D[r][r];
-    }
-  }
-  __syncthreads();
-
-  if (b == 0) {
-    L[(kk + ty) * npad + kk + tx] = (tx <= ty) ? D[ty][tx] : 0.0f;
-    Linv[(size_t)k * T * T + ty * T + tx] = Inv[ty][tx];
-  } else {
-    // L_ik[r][c] = sum_m A_ik[r][m] Inv[c][m]  (Inv lower: m <= c)
-    float acc = 0.0f;
-    for (int m = 0; m <= tx; ++m) acc += P[ty][m] * Inv[tx][m];
-    L[(kk + (size_t)b * T + ty) * npad + kk + tx] = acc;
-  }
+// t -> (i, j), j <= i, in row order of a lower triangle.
+__device__ __forceinline__ void tri_index(int t, int& i, int& j) {
+  int r = static_cast<int>((sqrtf(8.0f * static_cast<float>(t) + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > t) --r;
+  while ((r + 1) * (r + 2) / 2 <= t) ++r;
+  i = r;
+  j = t - r * (r + 1) / 2;
 }
 
-// Trailing update of panel k: A_ij -= L_ik L_jk^T for k < j <= i.
-__global__ void __launch_bounds__(1024) syrk_kernel(float* __restrict__ L, int npad, int k) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bj > bi) return;
-  __shared__ float Pi[T][T + 1];
-  __shared__ float Pj[T][T + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const size_t kk = (size_t)k * T;
-  const size_t i0 = kk + (size_t)(bi + 1) * T;
-  const size_t j0 = kk + (size_t)(bj + 1) * T;
-  Pi[ty][tx] = L[(i0 + ty) * npad + kk + tx];
-  Pj[ty][tx] = L[(j0 + ty) * npad + kk + tx];
-  __syncthreads();
-  float acc = 0.0f;
+// Issue the copy of a 32x32 tile (row stride `stride` floats) into shared
+// memory at stride TS: one 16-byte piece per thread.
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int stride) {
+  const int r = threadIdx.x >> 3, q = threadIdx.x & 7;
+  cp_async16(dst + r * TS + 4 * q, src + (size_t)r * stride + 4 * q);
+}
+
+// This thread's 2x2 micro-tile: rows ty, ty+16 and columns tx, tx+16.
+__device__ __forceinline__ int thread_row() { return threadIdx.x >> 4; }
+__device__ __forceinline__ int thread_col() { return threadIdx.x & 15; }
+
+// acc[a][b] = sum_m P[ty + 16a][m] Q[tx + 16b][m], summed in m order.
+__device__ __forceinline__ void tile_dot(const float* P, const float* Q, float acc[2][2]) {
+  const int ty = thread_row(), tx = thread_col();
+  acc[0][0] = acc[0][1] = acc[1][0] = acc[1][1] = 0.0f;
 #pragma unroll
-  for (int m = 0; m < T; ++m) acc += Pi[ty][m] * Pj[tx][m];
-  L[(i0 + ty) * npad + j0 + tx] -= acc;
-}
-
-// y = L^-1 b in one block of 1024 threads; b and y are npad long. Per
-// 32-row block k: y_k = Linv_k y_k, then every later row r subtracts
-// L[r, k-block] . y_k, one row per thread with eight independent 16-byte
-// loads in flight (rows are 128-byte aligned: npad and k*T are multiples of
-// 32 floats).
-__global__ void __launch_bounds__(1024) forward_kernel(const float* __restrict__ L, const float* __restrict__ Linv,
-                               int npad, const float* __restrict__ b, float* __restrict__ y) {
-  extern __shared__ float ys[];
-  __shared__ float yk[T];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < npad; i += blockDim.x) ys[i] = b[i];
-  __syncthreads();
-  const int NB = npad / T;
-  for (int k = 0; k < NB; ++k) {
-    const float* Ik = Linv + (size_t)k * T * T;
-    if (tid < T) {
-      float acc = 0.0f;  // Linv is lower triangular: zeros above the diagonal
+  for (int q = 0; q < T / 4; ++q) {
+    const float4 p[2] = {*reinterpret_cast<const float4*>(P + ty * TS + 4 * q),
+                         *reinterpret_cast<const float4*>(P + (ty + 16) * TS + 4 * q)};
+    const float4 w[2] = {*reinterpret_cast<const float4*>(Q + tx * TS + 4 * q),
+                         *reinterpret_cast<const float4*>(Q + (tx + 16) * TS + 4 * q)};
 #pragma unroll
-      for (int m = 0; m < T; ++m) acc += Ik[tid * T + m] * ys[k * T + m];
-      yk[tid] = acc;
-    }
-    __syncthreads();
-    if (tid < T) ys[k * T + tid] = yk[tid];
-    for (int r = (k + 1) * T + tid; r < npad; r += blockDim.x) {
-      const float4* row = reinterpret_cast<const float4*>(L + (size_t)r * npad + (size_t)k * T);
-      float acc = 0.0f;
+    for (int u = 0; u < 2; ++u) {
 #pragma unroll
-      for (int q = 0; q < T / 4; ++q) {
-        const float4 v = row[q];
-        acc += v.x * yk[4 * q] + v.y * yk[4 * q + 1] + v.z * yk[4 * q + 2] + v.w * yk[4 * q + 3];
+      for (int v = 0; v < 2; ++v) {
+        acc[u][v] = fmaf(p[u].x, w[v].x, acc[u][v]);
+        acc[u][v] = fmaf(p[u].y, w[v].y, acc[u][v]);
+        acc[u][v] = fmaf(p[u].z, w[v].z, acc[u][v]);
+        acc[u][v] = fmaf(p[u].w, w[v].w, acc[u][v]);
       }
-      ys[r] -= acc;
     }
-    __syncthreads();
   }
-  for (int i = tid; i < npad; i += blockDim.x) y[i] = ys[i];
 }
 
-// z = L^-T y in one block; out_i = base_i + s_i z_i (base may be null).
-// Per block k (last to first): z_k = Linv_k^T y_k, then every earlier row r
-// subtracts sum_c L[kT+c, r] z_k[c]; consecutive threads read consecutive r.
-__global__ void __launch_bounds__(1024) backward_kernel(const float* __restrict__ L, const float* __restrict__ Linv,
-                                int npad, const float* __restrict__ y,
-                                const float* __restrict__ s, const float* __restrict__ base,
-                                float* __restrict__ out, int n_out) {
-  extern __shared__ float ys[];
-  __shared__ float xk[T];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < npad; i += blockDim.x) ys[i] = y[i];
-  __syncthreads();
-  const int NB = npad / T;
-  for (int k = NB - 1; k >= 0; --k) {
-    const float* Ik = Linv + (size_t)k * T * T;
-    if (tid < T) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < T; ++m) acc += Ik[m * T + tid] * ys[k * T + m];
-      xk[tid] = acc;
-    }
-    __syncthreads();
-    if (tid < T) ys[k * T + tid] = xk[tid];
-    for (int r = tid; r < k * T; r += blockDim.x) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int c = 0; c < T; ++c) acc += L[((size_t)k * T + c) * npad + r] * xk[c];
-      ys[r] -= acc;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < n_out; i += blockDim.x)
-    out[i] = (base ? base[i] : 0.0f) + s[i] * ys[i];
-}
-
-// b_i = (-g_i - (H x0 + lam x0)_i) s_i, one warp per row; padded rows 0.
-__global__ void residual_kernel(const float* __restrict__ H, int n, int npad,
-                                const float* __restrict__ g, const float* __restrict__ lam,
-                                const float* __restrict__ s, const float* __restrict__ x0,
-                                float* __restrict__ b) {
+// One warp: Cholesky factor of the 32x32 tile whose row `lane` is in a[]
+// (lower triangle read only), then its inverse. Leaves L_kk row-major in Lr
+// (zeros above the diagonal) and Linv_k row-major in Inv (both stride TS).
+// Step j broadcasts the pivot by shuffle and column j of L through LsT
+// (row j of L^T), read as 16-byte broadcasts. Every index is a compile-time
+// constant after unrolling, so a[] and x[] stay in registers.
+__device__ __forceinline__ void factor_diag(float (&a)[T], float* Lr, float* LsT, float* dinv, float* Inv) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= npad) return;
-  if (row >= n) {
-    if (lane == 0) b[row] = 0.0f;
-    return;
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    const float ljj = sqrtf(__shfl_sync(FULL, a[j], j));
+    const float inv = 1.0f / ljj;
+    const float l = lane < j ? 0.0f : (lane == j ? ljj : a[j] * inv);
+    a[j] = l;
+    LsT[j * T + lane] = l;
+    if (lane == 0) dinv[j] = inv;
+    __syncwarp();
+#pragma unroll
+    for (int q = (j + 1) / 4; q < T / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(LsT + j * T + 4 * q);
+      if (4 * q + 0 > j) a[4 * q + 0] = fmaf(-l, v.x, a[4 * q + 0]);
+      if (4 * q + 1 > j) a[4 * q + 1] = fmaf(-l, v.y, a[4 * q + 1]);
+      if (4 * q + 2 > j) a[4 * q + 2] = fmaf(-l, v.z, a[4 * q + 2]);
+      if (4 * q + 3 > j) a[4 * q + 3] = fmaf(-l, v.w, a[4 * q + 3]);
+    }
   }
-  const float* h = H + (size_t)row * n;
+#pragma unroll
+  for (int q = 0; q < T / 4; ++q)
+    *reinterpret_cast<float4*>(Lr + lane * TS + 4 * q) = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  __syncwarp();
+  // Column `lane` of L^-1 by forward substitution: x[r] = (e_r - L[r, :r] x[:r]) / L[r][r].
+  float x[T];
+#pragma unroll
+  for (int r = 0; r < T; ++r) {
+    float acc = lane == r ? 1.0f : 0.0f;
+#pragma unroll
+    for (int q = 0; q < (r + 3) / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(Lr + r * TS + 4 * q);
+      if (4 * q + 0 < r) acc = fmaf(-v.x, x[4 * q + 0], acc);
+      if (4 * q + 1 < r) acc = fmaf(-v.y, x[4 * q + 1], acc);
+      if (4 * q + 2 < r) acc = fmaf(-v.z, x[4 * q + 2], acc);
+      if (4 * q + 3 < r) acc = fmaf(-v.w, x[4 * q + 3], acc);
+    }
+    x[r] = acc * dinv[r];
+  }
+#pragma unroll
+  for (int r = 0; r < T; ++r) Inv[r * TS + lane] = x[r];
+}
+
+// 32 values of column `r` of row block k: M[(kT + c) * npad + r], c = 0..31.
+__device__ __forceinline__ void load_strip(float (&v)[T], const float* col, int npad) {
+#pragma unroll
+  for (int c = 0; c < T; ++c) v[c] = __ldcg(col + (size_t)c * npad);
+}
+
+__device__ __forceinline__ float dot_strip(const float (&v)[T], const float* vk) {
   float acc = 0.0f;
-  for (int j = lane; j < n; j += 32) acc += h[j] * x0[j];
-  acc = warp_sum(acc);
-  if (lane == 0) b[row] = (-g[row] - (acc + lam[0] * x0[row])) * s[row];
+#pragma unroll
+  for (int c = 0; c < T; ++c) acc = fmaf(v[c], vk[c], acc);
+  return acc;
+}
+
+// ys <- L^-1 ys (FWD) or L^-T ys, in place in shared memory, by this block
+// alone. Step k: v_k = Linv_k ys_k (or Linv_k^T ys_k); then every row r
+// still to come subtracts sum_c W[kT + c][r] v_k[c], W the workspace, whose
+// row block k holds L[k+1:, k]^T right of the diagonal (forward) and
+// L[k, 0:k] left of it (backward).
+template <bool FWD>
+__device__ void substitute(const Args& a, float* ys, float* lbuf, float* vk) {
+  const int tid = threadIdx.x, npad = a.npad, NB = a.NB;
+  const int first = FWD ? 0 : NB - 1;
+  stage_tile(lbuf + (first & 1) * TILE, a.Linv + (size_t)first * T * T, T);
+  cp_async_commit();
+  for (int step = 0; step < NB; ++step) {
+    const int k = FWD ? step : NB - 1 - step;
+    const int kn = FWD ? k + 1 : k - 1;
+    if (step + 1 < NB) stage_tile(lbuf + (kn & 1) * TILE, a.Linv + (size_t)kn * T * T, T);
+    cp_async_commit();
+    const int lo = FWD ? (k + 1) * T : 0, hi = FWD ? npad : k * T;
+    const float* blk = a.L + (size_t)k * T * npad;
+    const int r0 = lo + tid, r1 = r0 + THREADS;
+    float v0[T], v1[T];
+    if (r0 < hi) load_strip(v0, blk + r0, npad);
+    if (r1 < hi) load_strip(v1, blk + r1, npad);
+    cp_async_wait<1>();
+    __syncthreads();  // Linv_k staged; the previous step's rows done
+    if (tid < T) {
+      const float* li = lbuf + (k & 1) * TILE;
+      float acc = 0.0f;
+      if (FWD) {
+#pragma unroll
+        for (int q = 0; q < T / 4; ++q) {
+          const float4 w = *reinterpret_cast<const float4*>(li + tid * TS + 4 * q);
+          const float4 z = *reinterpret_cast<const float4*>(ys + k * T + 4 * q);
+          acc = fmaf(w.x, z.x, acc);
+          acc = fmaf(w.y, z.y, acc);
+          acc = fmaf(w.z, z.z, acc);
+          acc = fmaf(w.w, z.w, acc);
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < T; ++m) acc = fmaf(li[m * TS + tid], ys[k * T + m], acc);
+      }
+      vk[tid] = acc;
+    }
+    __syncthreads();
+    if (tid < T) ys[k * T + tid] = vk[tid];
+    if (r0 < hi) ys[r0] -= dot_strip(v0, vk);
+    if (r1 < hi) ys[r1] -= dot_strip(v1, vk);
+    for (int r = r1 + THREADS; r < hi; r += 2 * THREADS) {
+      const int r2 = r + THREADS;
+      load_strip(v0, blk + r, npad);
+      if (r2 < hi) load_strip(v1, blk + r2, npad);
+      ys[r] -= dot_strip(v0, vk);
+      if (r2 < hi) ys[r2] -= dot_strip(v1, vk);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float sc[2 * T];
+  __shared__ float dinv[T];
+  __shared__ __align__(16) float vk[T];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x, n = a.n, npad = a.npad, NB = a.NB;
+  const float lam = a.lam[0];
+  const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && tid == 0;
+  if (stamp) a.stamps[0] = now_ns();
+
+  // ---- set-up: s, b = -g s, lower tiles of s (H + lam I) s ------------------
+  for (int i = blockIdx.x * THREADS + tid; i < npad; i += G * THREADS) {
+    if (i < n) {
+      const float si = rsqrtf(fmaxf(a.H[(size_t)i * n + i] + lam, TINY));
+      a.s[i] = si;
+      a.b[i] = -a.g[i] * si;
+    } else {
+      a.s[i] = 1.0f;
+      a.b[i] = 0.0f;
+    }
+  }
+  for (int t = blockIdx.x; t < NB * (NB + 1) / 2; t += G) {
+    int bi, bj;
+    tri_index(t, bi, bj);
+    if (tid < 2 * T) {
+      const int idx = (tid < T ? bi : bj) * T + (tid & (T - 1));
+      sc[tid] = idx < n ? rsqrtf(fmaxf(a.H[(size_t)idx * n + idx] + lam, TINY)) : 1.0f;
+    }
+    __syncthreads();
+    for (int e = tid; e < T * T; e += THREADS) {
+      const int r = e / T, c = e % T, i = bi * T + r, j = bj * T + c;
+      float v;
+      if (i < n && j < n) {
+        v = ((a.H[(size_t)i * n + j] + (i == j ? lam : 0.0f)) * sc[r]) * sc[T + c];
+      } else {
+        v = (i == j) ? 1.0f : 0.0f;
+      }
+      a.L[(size_t)i * npad + j] = v;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+  if (stamp) a.stamps[1] = now_ns();
+
+  // ---- blocked Cholesky: per panel, two phases -----------------------------
+  float* const P0 = smem;
+  float* const Q0 = smem + TILE;
+  float* const P1 = smem + 2 * TILE;
+  float* const Q1 = smem + 3 * TILE;
+  float* const Lr = smem + 4 * TILE;
+  float* const Inv = smem + 5 * TILE;
+  float* const LsT = smem + 6 * TILE;
+  const int ty = thread_row(), tx = thread_col();
+  for (int k = 0; k < NB; ++k) {
+    const size_t kk = (size_t)k * T;
+    const int np = NB - k;  // panel tiles (k + t, k), t = 0..np-1
+    if (blockIdx.x < np) {
+      if (blockIdx.x > 0) stage_tile(P0, a.L + (kk + (size_t)blockIdx.x * T) * npad + kk, npad);
+      cp_async_commit();
+      if (warp == 0) {
+        float r[T];
+        const float4* src = reinterpret_cast<const float4*>(a.L + (kk + lane) * npad + kk);
+#pragma unroll
+        for (int q = 0; q < T / 4; ++q) {
+          const float4 v = __ldcg(src + q);
+          r[4 * q] = v.x;
+          r[4 * q + 1] = v.y;
+          r[4 * q + 2] = v.z;
+          r[4 * q + 3] = v.w;
+        }
+        factor_diag(r, Lr, LsT, dinv, Inv);
+      }
+      __syncthreads();
+      for (int t = blockIdx.x; t < np; t += G) {
+        const size_t i0 = kk + (size_t)t * T;
+        if (t == 0) {
+          for (int e = tid; e < T * T; e += THREADS) {
+            const int r = e / T, c = e % T;
+            a.L[(kk + r) * npad + kk + c] = Lr[r * TS + c];
+            a.Linv[kk * T + e] = Inv[r * TS + c];
+          }
+        } else {
+          cp_async_wait<0>();
+          __syncthreads();
+          float acc[2][2];
+          tile_dot(P0, Inv, acc);  // L_ik[r][c] = sum_m A_ik[r][m] Linv_k[c][m]
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              a.L[(i0 + ty + 16 * u) * npad + kk + tx + 16 * v] = acc[u][v];
+              Q0[(tx + 16 * v) * TS + ty + 16 * u] = acc[u][v];
+            }
+          }
+          __syncthreads();
+          // L_ik^T into the upper tile (k, i), 16 bytes per thread.
+          const int r = tid >> 3, q = tid & 7;
+          *reinterpret_cast<float4*>(a.L + (kk + r) * npad + i0 + 4 * q) =
+              *reinterpret_cast<const float4*>(Q0 + r * TS + 4 * q);
+        }
+        if (t + G < np) stage_tile(P0, a.L + (i0 + (size_t)G * T) * npad + kk, npad);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    grid.sync();
+
+    const int m = NB - 1 - k;
+    if (m == 0) break;
+    const int nu = m * (m + 1) / 2;  // lower tiles (k+1+i, k+1+j) of the trailing matrix
+    int t = blockIdx.x;
+    auto stage_job = [&](int job, float* P, float* Q) {
+      if (job < nu) {
+        int i, j;
+        tri_index(job, i, j);
+        stage_tile(P, a.L + (kk + (size_t)(i + 1) * T) * npad + kk, npad);
+        if (i != j) stage_tile(Q, a.L + (kk + (size_t)(j + 1) * T) * npad + kk, npad);
+      }
+      cp_async_commit();
+    };
+    stage_job(t, P0, Q0);
+    for (int st = 0; t < nu; t += G, st ^= 1) {
+      float* const P = st ? P1 : P0;
+      float* const Q = st ? Q1 : Q0;
+      stage_job(t + G, st ? P0 : P1, st ? Q0 : Q1);
+      int i, j;
+      tri_index(t, i, j);
+      float* const out = a.L + (kk + (size_t)(i + 1) * T) * npad + kk + (size_t)(j + 1) * T;
+      float o[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) o[u][v] = __ldcg(out + (size_t)(ty + 16 * u) * npad + tx + 16 * v);
+      cp_async_wait<1>();
+      __syncthreads();
+      float acc[2][2];
+      tile_dot(P, i == j ? P : Q, acc);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * u) * npad + tx + 16 * v] = o[u][v] - acc[u][v];
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    grid.sync();
+  }
+  if (stamp) a.stamps[2] = now_ns();
+
+  // ---- x0 = s L^-T L^-1 b (block 0) ----------------------------------------
+  float* const ys = smem;
+  float* const lbuf = smem + npad;
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.b + i);
+    __syncthreads();
+    substitute<true>(a, ys, lbuf, vk);
+    for (int i = tid; i < npad; i += THREADS) a.y[i] = ys[i];
+    substitute<false>(a, ys, lbuf, vk);
+    for (int i = tid; i < npad; i += THREADS) a.x0[i] = __ldcg(a.s + i) * ys[i];
+  }
+  grid.sync();
+  if (stamp) a.stamps[3] = now_ns();
+
+  // ---- b = (-g - (H + lam I) x0) s, one warp per row -------------------------
+  for (int row = blockIdx.x * (THREADS / 32) + warp; row < npad; row += G * (THREADS / 32)) {
+    if (row >= n) {
+      if (lane == 0) a.b[row] = 0.0f;
+      continue;
+    }
+    const float* h = a.H + (size_t)row * n;
+    float acc = 0.0f;
+    for (int j = lane; j < n; j += 32) acc += h[j] * __ldcg(a.x0 + j);
+    acc = warp_sum(acc);
+    if (lane == 0) a.b[row] = (-a.g[row] - (acc + lam * __ldcg(a.x0 + row))) * __ldcg(a.s + row);
+  }
+  grid.sync();
+  if (stamp) a.stamps[4] = now_ns();
+
+  // ---- x = x0 + s L^-T L^-1 b (block 0) --------------------------------------
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.b + i);
+    __syncthreads();
+    substitute<true>(a, ys, lbuf, vk);
+    for (int i = tid; i < npad; i += THREADS) a.y[i] = ys[i];
+    substitute<false>(a, ys, lbuf, vk);
+    for (int i = tid; i < n; i += THREADS) a.x[i] = __ldcg(a.x0 + i) + __ldcg(a.s + i) * ys[i];
+    if (stamp) a.stamps[5] = now_ns();
+  }
+}
+
+size_t smem_bytes(int npad) {
+  const int floats = npad + 2 * TILE;
+  return sizeof(float) * (size_t)(floats > FACTOR_FLOATS ? floats : FACTOR_FLOATS);
+}
+
+// Blocks of the cooperative grid for npad, or a negative cudaError_t.
+int grid_size(int npad) {
+  static int cached_dev = -1, cached_max = 0;
+  static size_t cached_smem = 0;
+  const size_t smem = smem_bytes(npad);
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev != cached_dev || smem != cached_smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return -(int)err;
+    err = cudaFuncSetAttribute((const void*)damped_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return -(int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, damped_solve_kernel, THREADS, smem);
+    if (err != cudaSuccess) return -(int)err;
+    if (per_sm <= 0) return -(int)cudaErrorCooperativeLaunchTooLarge;
+    cached_dev = dev;
+    cached_smem = smem;
+    cached_max = sms * per_sm;
+  }
+  const int NB = npad / T;
+  const int want = NB * (NB + 1) / 2;
+  return want < cached_max ? want : cached_max;
+}
+
+int launch(const float* H, const float* g, const float* lam, float* x, int n, float* L, float* Linv, float* s,
+           float* b, float* y, float* x0, unsigned long long* stamps, void* stream_ptr) {
+  const int npad = (n + T - 1) / T * T;
+  const int G = grid_size(npad);
+  if (G <= 0) return G < 0 ? -G : (int)cudaErrorInvalidValue;
+  Args a{H, g, lam, x, L, Linv, s, b, y, x0, stamps, n, npad, npad / T};
+  void* args[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)damped_solve_kernel, dim3(G), dim3(THREADS), args,
+                                                smem_bytes(npad), static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -256,48 +523,25 @@ extern "C" {
 // npad each, with npad = n rounded up to a multiple of 32.
 int tids_damped_solve_pad(int n) { return (n + T - 1) / T * T; }
 
-// x[n] = -(H + lam I)^-1 g on `stream`; returns the cudaError_t of the
-// launches (0 on success). All pointers are device pointers; lam is one float.
-int tids_damped_solve(const float* H, const float* g, const float* lam, float* x, int n,
-                      float* L, float* Linv, float* s, float* b, float* y, float* x0,
-                      void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int npad = tids_damped_solve_pad(n);
-  const int NB = npad / T;
-  const dim3 tile(T, T);
-  cudaError_t err;
-#define TIDS_CHECK()                         \
-  do {                                       \
-    err = cudaGetLastError();                \
-    if (err != cudaSuccess) return (int)err; \
-  } while (0)
+// Blocks of the cooperative grid for dim n (negative: a CUDA error).
+int tids_damped_solve_grid(int n) { return grid_size(tids_damped_solve_pad(n)); }
 
-  diag_scale_kernel<<<(npad + 255) / 256, 256, 0, stream>>>(H, n, npad, g, lam, s, b);
-  TIDS_CHECK();
-  equilibrate_kernel<<<dim3(NB, NB), tile, 0, stream>>>(H, n, npad, lam, s, L);
-  TIDS_CHECK();
-  for (int k = 0; k < NB; ++k) {
-    panel_kernel<<<NB - k, tile, 0, stream>>>(L, Linv, npad, k);
-    TIDS_CHECK();
-    const int m = NB - k - 1;
-    if (m > 0) {
-      syrk_kernel<<<dim3(m, m), tile, 0, stream>>>(L, npad, k);
-      TIDS_CHECK();
-    }
-  }
-  const size_t smem = (size_t)npad * sizeof(float);
-  forward_kernel<<<1, 1024, smem, stream>>>(L, Linv, npad, b, y);
-  TIDS_CHECK();
-  backward_kernel<<<1, 1024, smem, stream>>>(L, Linv, npad, y, s, nullptr, x0, npad);
-  TIDS_CHECK();
-  residual_kernel<<<(npad + 7) / 8, 256, 0, stream>>>(H, n, npad, g, lam, s, x0, b);
-  TIDS_CHECK();
-  forward_kernel<<<1, 1024, smem, stream>>>(L, Linv, npad, b, y);
-  TIDS_CHECK();
-  backward_kernel<<<1, 1024, smem, stream>>>(L, Linv, npad, y, s, x0, x, n);
-  TIDS_CHECK();
-#undef TIDS_CHECK
-  return 0;
+// x[n] = -(H + lam I)^-1 g on `stream`, one cooperative launch; returns the
+// cudaError_t of the launch (0 on success; a refused launch returns its
+// error and nothing runs). All pointers are device pointers; lam is one
+// float.
+int tids_damped_solve(const float* H, const float* g, const float* lam, float* x, int n, float* L, float* Linv,
+                      float* s, float* b, float* y, float* x0, void* stream) {
+  return launch(H, g, lam, x, n, L, Linv, s, b, y, x0, nullptr, stream);
+}
+
+// The same launch, with block 0 writing the globaltimer (ns) at the start and
+// at the end of each phase into stamps[6]: start, set-up, factorization,
+// first solve pair, residual, second solve pair.
+int tids_damped_solve_timed(const float* H, const float* g, const float* lam, float* x, int n, float* L,
+                            float* Linv, float* s, float* b, float* y, float* x0, unsigned long long* stamps,
+                            void* stream) {
+  return launch(H, g, lam, x, n, L, Linv, s, b, y, x0, stamps, stream);
 }
 
 }  // extern "C"

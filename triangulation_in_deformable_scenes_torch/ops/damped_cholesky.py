@@ -9,8 +9,8 @@ kernel (``csrc/damped_cholesky.cu``) replaces the TPU kernel
 bound and design.
 
 - ``damped_solve_cuda`` launches the kernel on CUDA tensors and raises on
-  anything else. ``LAUNCHES`` counts its calls (solves, each a sequence of
-  CUDA launches).
+  anything else, also when the card refuses the cooperative launch.
+  ``LAUNCHES`` counts its calls: one solve is one CUDA launch.
 - ``solve_damped_cholesky_plain`` is the same formula in torch
   (``cholesky_ex`` + ``cholesky_solve``). It returns NaN where the
   factorization fails, as ``jax.scipy.linalg.cho_factor`` does, so that LM
@@ -32,10 +32,9 @@ import torch
 from ..precision import TINY
 from . import _nvcc
 
-# Calls of the kernel wrapper (one per solve), in all and by system dim,
-# read by chip_smoke.py to show that the main path ran through the kernel.
-# One count is one launch sequence of 2 * ceil(dim / 32) + 6 CUDA kernels
-# (98 at dim 1448), not one CUDA launch.
+# Launches of the kernel (one cooperative CUDA launch per solve), in all and
+# by system dim, read by chip_smoke.py to show that the main path ran
+# through the kernel.
 LAUNCHES = 0
 LAUNCHES_BY_DIM = collections.Counter()
 
@@ -51,6 +50,10 @@ def _load():
         lib.tids_damped_solve.restype = ctypes.c_int
         lib.tids_damped_solve_pad.argtypes = [ctypes.c_int]
         lib.tids_damped_solve_pad.restype = ctypes.c_int
+        lib.tids_damped_solve_grid.argtypes = [ctypes.c_int]
+        lib.tids_damped_solve_grid.restype = ctypes.c_int
+        lib.tids_damped_solve_timed.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.tids_damped_solve_timed.restype = ctypes.c_int
         _lib = lib
     return _lib
 
