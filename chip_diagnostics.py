@@ -2,9 +2,9 @@
 """Diagnostics of the torch port on one NVIDIA card, beside chip_smoke.py.
 They print readings and check only what is stated; PERF.md cites them.
 
-    python3 chip_diagnostics.py [mutants] [match_mutants] [rounding] [profiler]
+    python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [rounding] [profiler]
 
-(no argument runs all four)
+(no argument runs all six)
 
 - ``mutants``: copies the package and chip_smoke.py into a temporary
   directory, removes one term of ``csrc/block_pcg.cu`` there (the neighbour
@@ -17,6 +17,15 @@ They print readings and check only what is stated; PERF.md cites them.
   last occurrence winning a tie, a displaced best not becoming the second,
   no window test, no octave gate, no column validity, no row flag; each must
   fail ``chip_smoke.match_phase()``.
+- ``chol_mutants``: the same for kernel 1, ``csrc/damped_cholesky.cu``: no
+  trailing update of the diagonal tiles, the refinement residual without
+  its lam x0 term, and the grid.sync() between the factorization and the
+  first solve removed; each must fail ``chip_smoke.kernel_phase()`` or
+  ``refinement_phase()`` (an accuracy or a repeated-call check).
+- ``chol_profile``: kernel 1 at dims 377, 1448, 2591 and 4096 under
+  ``torch.profiler`` (launches and device time per solve by CUDA kernel
+  name, CUDA events beside them) and its per-phase times from the
+  globaltimer stamps of ``tids_damped_solve_timed``.
 - ``rounding``: ``solve_pair`` from the first state at 2600 and 861 points
   for 1..10 LM iterations, four ways: the kernel on the card, the plain PCG
   on the card, f32 on the CPU, f64 on the CPU; accepted and damped-solve
@@ -56,6 +65,19 @@ MATCH_MUTANTS = {
     "no_row_flag": ("    if (!ok) continue;", ""),
 }
 MATCH_PROBE = "import chip_smoke as c\nc.setup()\nc.match_phase()\n"
+# Kernel 1: one mutant may break several lines (pairs of old, new).
+CHOL_MUTANTS = {
+    "no_diagonal_tile_update": (
+        ("= o[u][v] - acc[u][v];", "= i == j ? o[u][v] : o[u][v] - acc[u][v];"),
+        ("Q1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];", "Q1[(ty + 16 * u) * TS + tx + 16 * v] -= 0.0f * acc[u][v];"),
+    ),
+    "no_lam_x0_in_residual": ("(acc + lam * __ldcg(a.x0 + row))", "(acc)"),
+    "no_sync_before_substitution": (
+        "    grid.sync();\n  }\n  if (stamp) a.stamps[2] = now_ns();",
+        "    if (c + 1 < NB) grid.sync();\n  }\n  if (stamp) a.stamps[2] = now_ns();",
+    ),
+}
+CHOL_PROBE = "import chip_smoke as c\nc.setup()\nc.kernel_phase()\nc.refinement_phase()\n"
 PROBE = r"""
 import torch, chip_smoke as c
 from triangulation_in_deformable_scenes_torch.models import block_system as bs
@@ -75,10 +97,11 @@ c.pcg_case(861)
 
 
 def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
-    """Each broken kernel must fail its probe (kernel 2: chip_smoke.pcg_case(861))."""
+    """Each broken kernel must fail its probe (kernel 2: chip_smoke.pcg_case(861));
+    ``table`` maps a name to one (old, new) pair or to a tuple of them."""
     all_failed = True
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new) in table.items():
+        for name, spec in table.items():
             dst = os.path.join(tmp, name)
             shutil.copytree(os.path.join(c.REPO, PKG), os.path.join(dst, PKG),
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -86,9 +109,11 @@ def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
             cu = os.path.join(dst, PKG, "csrc", source)
             with open(cu) as f:
                 src = f.read()
-            c.check(src.count(old) == 1, f"mutant {name}: the line to break is not in {source} once")
+            for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+                c.check(src.count(old) == 1, f"mutant {name}: the line to break is not in {source} once")
+                src = src.replace(old, new)
             with open(cu, "w") as f:
-                f.write(src.replace(old, new))
+                f.write(src)
             out = subprocess.run([sys.executable, "-c", probe], cwd=dst, capture_output=True, text=True)
             lines = [ln for ln in (out.stdout + out.stderr).splitlines()
                      if ln.startswith(("[mutant]", "FAILED"))]
@@ -127,7 +152,7 @@ def rounding():
             c.log(f"[rounding] {n} points, {its} iterations | " + " | ".join(out))
 
 
-def chol_profile(dims=(377, 1448, 2591), reps=20):
+def chol_profile(dims=(377, 1448, 2591, 4096), reps=20):
     """Kernel 1's CUDA launches under ``torch.profiler`` over ``reps`` solves
     of chip_smoke.py's synthetic system at each dim: launches and device
     time per solve for each CUDA kernel name, and CUDA events around one
@@ -162,7 +187,7 @@ def chol_profile(dims=(377, 1448, 2591), reps=20):
               + f" us_per_panel={1e3 * phases['factorization'] / nb:.2f}")
 
 
-CHOL_PHASES = ("set-up", "factorization", "solve_pair_1", "residual", "solve_pair_2")
+CHOL_PHASES = ("set-up", "factorization", "backward_1", "residual", "solve_pair_2")
 
 
 def chol_phases(H, g, lam, reps):
@@ -219,7 +244,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("no CUDA device: chip_diagnostics.py runs on an NVIDIA card only", file=sys.stderr)
         return 3
-    which = argv or ["mutants", "match_mutants", "rounding", "profiler"]
+    which = argv or ["mutants", "match_mutants", "chol_mutants", "chol_profile", "rounding", "profiler"]
     c.setup()
     ok = True
     for name in which:
@@ -227,6 +252,8 @@ def main(argv):
             ok &= mutants()
         elif name == "match_mutants":
             ok &= mutants("match_scan.cu", MATCH_MUTANTS, MATCH_PROBE)
+        elif name == "chol_mutants":
+            ok &= mutants("damped_cholesky.cu", CHOL_MUTANTS, CHOL_PROBE)
         elif name == "rounding":
             rounding()
         elif name == "profiler":

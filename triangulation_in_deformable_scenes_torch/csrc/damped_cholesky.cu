@@ -25,27 +25,32 @@
 // 1.0 GFLOP against 8.4 MB of H read, so the solve is compute-bound at about
 // 15 us; at 4096 about 23 GFLOP, 0.34 ms; at 728 about 0.13 GFLOP, 2 us.
 // What decides the time instead is the chain of dim/32 dependent panels and
-// the four triangular solves, each a chain of dim/32 dependent steps.
+// the three triangular solves left after the factorization, each a chain of
+// dim/32 dependent steps in one block.
 //
 // Design: ONE cooperative persistent launch per solve (grid = the
-// co-resident maximum, or one block per lower tile if that is fewer; 256
-// threads a block), phases separated by grid.sync(). The dim is padded to a
-// multiple of T = 32 (identity on the padded diagonal, zero right-hand side,
-// so padded solution rows are exactly 0).
+// co-resident maximum, two blocks of 256 threads per SM, or one block per
+// lower tile if that is fewer), phases separated by grid.sync(). The dim is
+// padded to a multiple of T = 32 (identity on the padded diagonal, zero
+// right-hand side, so padded solution rows are exactly 0).
 //   * set-up: s and b = -g s; the lower tiles of s A s into the workspace
-//     (each tile recomputes its own 64 scales, which saves a sync).
-//   * panel k: every block that holds a panel tile (k..NB-1, k) factors the
-//     diagonal tile itself in ONE WARP, in registers (lane r holds row r; the
-//     pivot by __shfl_sync, the column by shared-memory broadcasts) and
-//     inverts it the same way (lane c forms column c of Linv_k), so no block
-//     waits for another; block 0 stores L_kk and Linv_k, the others
-//     L_ik = A_ik Linv_k^T, and also its transpose into the upper tile (k, i),
-//     which the upper triangle of the workspace otherwise does not use.
-//     grid.sync().
-//   * trailing update A_ij -= L_ik L_jk^T (k < j <= i), grid-stride over the
-//     lower tiles: both panel tiles staged in padded shared memory by
-//     cp.async, the next job's while this one computes; each thread forms a
-//     2x2 register micro-tile with 16-byte shared-memory reads. grid.sync().
+//     (each tile recomputes its own 64 scales, which saves a sync). H is
+//     read with an evict-first hint here and in the residual, so that at
+//     dim 2591 it does not push the factor out of the 50 MB L2.
+//   * phase c = 0..NB-1, ONE grid.sync() each (lookahead): the blocks of
+//     column c (one per tile (i, c), i >= c) apply panel c-1 to their tile
+//     and to the diagonal tile (c, c), each factor and invert that diagonal
+//     tile in ONE WARP, in registers (lane r holds row r; the pivot by
+//     __shfl_sync, the column by shared-memory broadcasts; lane q then forms
+//     column q of Linv_c), so no block waits for another; then L_ic =
+//     A_ic Linv_c^T, written to the lower tile and transposed into the upper
+//     tile (c, i), which the factor does not otherwise use. The forward solve
+//     of the first right-hand side rides along: y_c = Linv_c b_c, and the
+//     block of row i does b_i -= L_ic y_c. Meanwhile the other blocks apply
+//     panel c-1 to the trailing tiles A_ij -= L_i,c-1 L_j,c-1^T (c < j <= i):
+//     both panel tiles staged in padded shared memory by cp.async, the next
+//     job's while this one computes, each thread a 2x2 register micro-tile
+//     from 16-byte shared-memory reads.
 //   * the triangular solves in block 0 (the others wait at the next sync),
 //     right-looking over 32-row blocks with the right-hand side in shared
 //     memory: row block k of the workspace holds L[k, 0:k] left of the
@@ -54,8 +59,9 @@
 //     columns. The diagonal blocks go through the stored inverses (as the
 //     Pallas kernel does); the next inverse comes by cp.async and the first
 //     two rows' strips into registers before each step's barrier.
-//   * the refinement residual (-g - A x0) s, one warp per row over all
-//     blocks, between two grid.sync(); then the second pair of solves.
+//   * x0 = s L^-T y (block 0); the refinement residual (-g - A x0) s, one
+//     warp per row over all blocks, between two grid.sync(); then the second
+//     forward and backward solves.
 // Every block reaches every grid.sync(): there is no data-dependent exit, so
 // a NaN pivot gives NaN output and no hang. No atomics, every sum in a fixed
 // order: repeated calls give bit-identical output. f32 FMA only, no tensor
@@ -73,8 +79,7 @@ constexpr int T = 32;                  // tile edge
 constexpr int THREADS = 256;           // threads per block
 constexpr int TS = T + 4;              // shared row stride of a staged tile: 16-byte rows, no conflicts
 constexpr int TILE = T * TS;           // floats of one staged tile
-constexpr int FACTOR_FLOATS = 6 * TILE + T * T;  // P0 Q0 P1 Q1 Lr Inv, LsT
-constexpr int NSTAMPS = 6;
+constexpr int FACTOR_FLOATS = 7 * TILE + T * T;  // P0 Q0 P1 Q1 Tb Lr Inv, LsT
 constexpr float TINY = 1e-30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -89,7 +94,7 @@ struct Args {
   float* b;         // [npad] right-hand side
   float* y;         // [npad] last forward solve
   float* x0;        // [npad] unrefined solution
-  unsigned long long* stamps;  // [NSTAMPS] phase ends (globaltimer ns), or null
+  unsigned long long* stamps;  // [6] phase ends (globaltimer ns), or null
   int n, npad, NB;
 };
 
@@ -285,6 +290,7 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   __shared__ float sc[2 * T];
   __shared__ float dinv[T];
   __shared__ __align__(16) float vk[T];
+  __shared__ float bc[T], yc[T];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int G = gridDim.x, n = a.n, npad = a.npad, NB = a.NB;
   const float lam = a.lam[0];
@@ -294,7 +300,7 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   // ---- set-up: s, b = -g s, lower tiles of s (H + lam I) s ------------------
   for (int i = blockIdx.x * THREADS + tid; i < npad; i += G * THREADS) {
     if (i < n) {
-      const float si = rsqrtf(fmaxf(a.H[(size_t)i * n + i] + lam, TINY));
+      const float si = rsqrtf(fmaxf(__ldcs(a.H + (size_t)i * n + i) + lam, TINY));
       a.s[i] = si;
       a.b[i] = -a.g[i] * si;
     } else {
@@ -307,14 +313,14 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
     tri_index(t, bi, bj);
     if (tid < 2 * T) {
       const int idx = (tid < T ? bi : bj) * T + (tid & (T - 1));
-      sc[tid] = idx < n ? rsqrtf(fmaxf(a.H[(size_t)idx * n + idx] + lam, TINY)) : 1.0f;
+      sc[tid] = idx < n ? rsqrtf(fmaxf(__ldcs(a.H + (size_t)idx * n + idx) + lam, TINY)) : 1.0f;
     }
     __syncthreads();
     for (int e = tid; e < T * T; e += THREADS) {
       const int r = e / T, c = e % T, i = bi * T + r, j = bj * T + c;
       float v;
       if (i < n && j < n) {
-        v = ((a.H[(size_t)i * n + j] + (i == j ? lam : 0.0f)) * sc[r]) * sc[T + c];
+        v = ((__ldcs(a.H + (size_t)i * n + j) + (i == j ? lam : 0.0f)) * sc[r]) * sc[T + c];
       } else {
         v = (i == j) ? 1.0f : 0.0f;
       }
@@ -325,118 +331,160 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   grid.sync();
   if (stamp) a.stamps[1] = now_ns();
 
-  // ---- blocked Cholesky: per panel, two phases -----------------------------
+  // ---- blocked Cholesky with lookahead, and y = L^-1 b alongside -----------
+  // Phase c (one grid.sync each): the blocks of column c apply panel c-1 to
+  // their tile and to the diagonal tile (c, c), factor and invert that, and
+  // form their panel tile L_ic and b_i -= L_ic y_c; the other blocks apply
+  // panel c-1 to the trailing tiles (i, j), c < j <= i.
   float* const P0 = smem;
   float* const Q0 = smem + TILE;
   float* const P1 = smem + 2 * TILE;
   float* const Q1 = smem + 3 * TILE;
-  float* const Lr = smem + 4 * TILE;
-  float* const Inv = smem + 5 * TILE;
-  float* const LsT = smem + 6 * TILE;
+  float* const Tb = smem + 4 * TILE;
+  float* const Lr = smem + 5 * TILE;
+  float* const Inv = smem + 6 * TILE;
+  float* const LsT = smem + 7 * TILE;
   const int ty = thread_row(), tx = thread_col();
-  for (int k = 0; k < NB; ++k) {
-    const size_t kk = (size_t)k * T;
-    const int np = NB - k;  // panel tiles (k + t, k), t = 0..np-1
-    if (blockIdx.x < np) {
-      if (blockIdx.x > 0) stage_tile(P0, a.L + (kk + (size_t)blockIdx.x * T) * npad + kk, npad);
+  for (int c = 0; c < NB; ++c) {
+    const size_t cc = (size_t)c * T, kk = cc - T;  // kk: column of panel c-1
+    const int ncol = NB - c;                       // column jobs: tiles (c + t, c)
+    for (int t = blockIdx.x; t < ncol; t += G) {
+      const size_t i0 = cc + (size_t)t * T;
+      // P0 = L_{c,c-1}, Q0 = L_{i,c-1}, Q1 = A_cc, P1 = A_ic
+      if (c > 0) {
+        stage_tile(P0, a.L + cc * npad + kk, npad);
+        if (t > 0) stage_tile(Q0, a.L + i0 * npad + kk, npad);
+      }
+      stage_tile(Q1, a.L + cc * npad + cc, npad);
+      if (t > 0) stage_tile(P1, a.L + i0 * npad + cc, npad);
       cp_async_commit();
+      if (tid < T) bc[tid] = __ldcg(a.b + cc + tid);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (c > 0) {
+        float acc[2][2];
+        tile_dot(P0, P0, acc);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int v = 0; v < 2; ++v) Q1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
+        if (t > 0) {
+          tile_dot(Q0, P0, acc);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) P1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
+        }
+        __syncthreads();
+      }
       if (warp == 0) {
         float r[T];
-        const float4* src = reinterpret_cast<const float4*>(a.L + (kk + lane) * npad + kk);
 #pragma unroll
         for (int q = 0; q < T / 4; ++q) {
-          const float4 v = __ldcg(src + q);
+          const float4 v = *reinterpret_cast<const float4*>(Q1 + lane * TS + 4 * q);
           r[4 * q] = v.x;
           r[4 * q + 1] = v.y;
           r[4 * q + 2] = v.z;
           r[4 * q + 3] = v.w;
         }
         factor_diag(r, Lr, LsT, dinv, Inv);
+        __syncwarp();
+        float acc = 0.0f;  // y_c = Linv_c b_c
+#pragma unroll
+        for (int q = 0; q < T / 4; ++q) {
+          const float4 w = *reinterpret_cast<const float4*>(Inv + lane * TS + 4 * q);
+          acc = fmaf(w.x, bc[4 * q], acc);
+          acc = fmaf(w.y, bc[4 * q + 1], acc);
+          acc = fmaf(w.z, bc[4 * q + 2], acc);
+          acc = fmaf(w.w, bc[4 * q + 3], acc);
+        }
+        yc[lane] = acc;
       }
       __syncthreads();
-      for (int t = blockIdx.x; t < np; t += G) {
-        const size_t i0 = kk + (size_t)t * T;
-        if (t == 0) {
-          for (int e = tid; e < T * T; e += THREADS) {
-            const int r = e / T, c = e % T;
-            a.L[(kk + r) * npad + kk + c] = Lr[r * TS + c];
-            a.Linv[kk * T + e] = Inv[r * TS + c];
-          }
-        } else {
-          cp_async_wait<0>();
-          __syncthreads();
-          float acc[2][2];
-          tile_dot(P0, Inv, acc);  // L_ik[r][c] = sum_m A_ik[r][m] Linv_k[c][m]
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              a.L[(i0 + ty + 16 * u) * npad + kk + tx + 16 * v] = acc[u][v];
-              Q0[(tx + 16 * v) * TS + ty + 16 * u] = acc[u][v];
-            }
-          }
-          __syncthreads();
-          // L_ik^T into the upper tile (k, i), 16 bytes per thread.
-          const int r = tid >> 3, q = tid & 7;
-          *reinterpret_cast<float4*>(a.L + (kk + r) * npad + i0 + 4 * q) =
-              *reinterpret_cast<const float4*>(Q0 + r * TS + 4 * q);
+      if (t == 0) {
+        for (int e = tid; e < T * T; e += THREADS) {
+          const int r = e / T, q = e % T;
+          a.L[(cc + r) * npad + cc + q] = Lr[r * TS + q];
+          a.Linv[cc * T + e] = Inv[r * TS + q];
         }
-        if (t + G < np) stage_tile(P0, a.L + (i0 + (size_t)G * T) * npad + kk, npad);
+        if (tid < T) a.y[cc + tid] = yc[tid];
+      } else {
+        float acc[2][2];
+        tile_dot(P1, Inv, acc);  // L_ic[r][q] = sum_m A_ic[r][m] Linv_c[q][m]
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            a.L[(i0 + ty + 16 * u) * npad + cc + tx + 16 * v] = acc[u][v];
+            Tb[(tx + 16 * v) * TS + ty + 16 * u] = acc[u][v];
+          }
+        }
+        __syncthreads();
+        // L_ic^T into the upper tile (c, i), 16 bytes per thread.
+        const int r = tid >> 3, q = tid & 7;
+        *reinterpret_cast<float4*>(a.L + (cc + r) * npad + i0 + 4 * q) =
+            *reinterpret_cast<const float4*>(Tb + r * TS + 4 * q);
+        if (tid < T) {  // b_i -= L_ic y_c
+          float acc1 = 0.0f;
+#pragma unroll
+          for (int m = 0; m < T; ++m) acc1 = fmaf(Tb[m * TS + tid], yc[m], acc1);
+          a.b[i0 + tid] = __ldcg(a.b + i0 + tid) - acc1;
+        }
+      }
+      __syncthreads();
+    }
+
+    // Trailing tiles (c+1+i, c+1+j), j <= i, by the blocks without a column
+    // job (all blocks if the grid is smaller than the column).
+    const int mm = NB - 1 - c;
+    const int nu = c > 0 ? mm * (mm + 1) / 2 : 0;
+    const int stride = G > ncol ? G - ncol : G;
+    int t = G > ncol ? (int)blockIdx.x - ncol : (int)blockIdx.x;
+    if (t >= 0 && t < nu) {
+      auto stage_job = [&](int job, float* P, float* Q) {
+        if (job < nu) {
+          int i, j;
+          tri_index(job, i, j);
+          stage_tile(P, a.L + (cc + (size_t)(i + 1) * T) * npad + kk, npad);
+          if (i != j) stage_tile(Q, a.L + (cc + (size_t)(j + 1) * T) * npad + kk, npad);
+        }
         cp_async_commit();
+      };
+      stage_job(t, P0, Q0);
+      for (int st = 0; t < nu; t += stride, st ^= 1) {
+        float* const P = st ? P1 : P0;
+        float* const Q = st ? Q1 : Q0;
+        stage_job(t + stride, st ? P0 : P1, st ? Q0 : Q1);
+        int i, j;
+        tri_index(t, i, j);
+        float* const out = a.L + (cc + (size_t)(i + 1) * T) * npad + cc + (size_t)(j + 1) * T;
+        float o[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int v = 0; v < 2; ++v) o[u][v] = __ldcg(out + (size_t)(ty + 16 * u) * npad + tx + 16 * v);
+        cp_async_wait<1>();
+        __syncthreads();
+        float acc[2][2];
+        tile_dot(P, i == j ? P : Q, acc);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * u) * npad + tx + 16 * v] = o[u][v] - acc[u][v];
+        __syncthreads();
       }
       cp_async_wait<0>();
     }
     grid.sync();
-
-    const int m = NB - 1 - k;
-    if (m == 0) break;
-    const int nu = m * (m + 1) / 2;  // lower tiles (k+1+i, k+1+j) of the trailing matrix
-    int t = blockIdx.x;
-    auto stage_job = [&](int job, float* P, float* Q) {
-      if (job < nu) {
-        int i, j;
-        tri_index(job, i, j);
-        stage_tile(P, a.L + (kk + (size_t)(i + 1) * T) * npad + kk, npad);
-        if (i != j) stage_tile(Q, a.L + (kk + (size_t)(j + 1) * T) * npad + kk, npad);
-      }
-      cp_async_commit();
-    };
-    stage_job(t, P0, Q0);
-    for (int st = 0; t < nu; t += G, st ^= 1) {
-      float* const P = st ? P1 : P0;
-      float* const Q = st ? Q1 : Q0;
-      stage_job(t + G, st ? P0 : P1, st ? Q0 : Q1);
-      int i, j;
-      tri_index(t, i, j);
-      float* const out = a.L + (kk + (size_t)(i + 1) * T) * npad + kk + (size_t)(j + 1) * T;
-      float o[2][2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) o[u][v] = __ldcg(out + (size_t)(ty + 16 * u) * npad + tx + 16 * v);
-      cp_async_wait<1>();
-      __syncthreads();
-      float acc[2][2];
-      tile_dot(P, i == j ? P : Q, acc);
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * u) * npad + tx + 16 * v] = o[u][v] - acc[u][v];
-      __syncthreads();
-    }
-    cp_async_wait<0>();
-    grid.sync();
   }
   if (stamp) a.stamps[2] = now_ns();
 
-  // ---- x0 = s L^-T L^-1 b (block 0) ----------------------------------------
+  // ---- x0 = s L^-T y (block 0) ---------------------------------------------
   float* const ys = smem;
   float* const lbuf = smem + npad;
   if (blockIdx.x == 0) {
-    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.b + i);
+    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.y + i);
     __syncthreads();
-    substitute<true>(a, ys, lbuf, vk);
-    for (int i = tid; i < npad; i += THREADS) a.y[i] = ys[i];
     substitute<false>(a, ys, lbuf, vk);
     for (int i = tid; i < npad; i += THREADS) a.x0[i] = __ldcg(a.s + i) * ys[i];
   }
@@ -451,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
     }
     const float* h = a.H + (size_t)row * n;
     float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc += h[j] * __ldcg(a.x0 + j);
+    for (int j = lane; j < n; j += 32) acc += __ldcs(h + j) * __ldcg(a.x0 + j);
     acc = warp_sum(acc);
     if (lane == 0) a.b[row] = (-a.g[row] - (acc + lam * __ldcg(a.x0 + row))) * __ldcg(a.s + row);
   }
@@ -536,8 +584,9 @@ int tids_damped_solve(const float* H, const float* g, const float* lam, float* x
 }
 
 // The same launch, with block 0 writing the globaltimer (ns) at the start and
-// at the end of each phase into stamps[6]: start, set-up, factorization,
-// first solve pair, residual, second solve pair.
+// at the end of each phase into stamps[6]: start, set-up, factorization
+// (with the first forward solve), first backward solve, residual, second
+// solve pair.
 int tids_damped_solve_timed(const float* H, const float* g, const float* lam, float* x, int n, float* L,
                             float* Linv, float* s, float* b, float* y, float* x0, unsigned long long* stamps,
                             void* stream) {
