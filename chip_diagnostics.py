@@ -3,8 +3,9 @@
 They print readings and check only what is stated; PERF.md cites them.
 
     python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [rounding] [profiler]
+    python3 chip_diagnostics.py chol_parity=OTHER_damped_cholesky.cu
 
-(no argument runs all six)
+(no argument runs the first six)
 
 - ``mutants``: copies the package and chip_smoke.py into a temporary
   directory, removes one term of ``csrc/block_pcg.cu`` there (the neighbour
@@ -26,6 +27,8 @@ They print readings and check only what is stated; PERF.md cites them.
   ``torch.profiler`` (launches and device time per solve by CUDA kernel
   name, CUDA events beside them) and its per-phase times from the
   globaltimer stamps of ``tids_damped_solve_timed``.
+- ``chol_parity=PATH``: kernel 1 bit for bit against another version of
+  its source, built into a library of its own, on chip_smoke.py's systems.
 - ``rounding``: ``solve_pair`` from the first state at 2600 and 861 points
   for 1..10 LM iterations, four ways: the kernel on the card, the plain PCG
   on the card, f32 on the CPU, f64 on the CPU; accepted and damped-solve
@@ -158,7 +161,6 @@ def chol_profile(dims=(377, 1448, 2591, 4096), reps=20):
     time per solve for each CUDA kernel name, and CUDA events around one
     solve (median of 30) beside them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
 
@@ -168,23 +170,71 @@ def chol_profile(dims=(377, 1448, 2591, 4096), reps=20):
         lam = torch.tensor(lam, dtype=torch.float32, device="cuda")
         solve = lambda: dc.damped_solve_cuda(H, g, lam)
         event_ms = c.time_ms(solve)
-        solve()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                solve()
-            torch.cuda.synchronize()
-        rows = sorted(((ev.key, ev.count / reps, ev.self_device_time_total / reps)
-                       for ev in prof.key_averages() if ev.self_device_time_total > 0), key=lambda r: -r[2])
-        total_us = sum(r[2] for r in rows)
-        c.log(f"[chol_profile] dim={dim} events_ms={event_ms:.4f} device_ms={total_us / 1e3:.4f} "
+        rows = sorted(((k, n / reps, n * ms / reps) for k, (n, ms) in c.device_launches(solve, reps).items()),
+                      key=lambda r: -r[2])
+        c.log(f"[chol_profile] dim={dim} events_ms={event_ms:.4f} device_ms={sum(r[2] for r in rows):.4f} "
               f"launches_per_solve={sum(r[1] for r in rows):g} | "
-              + " | ".join(f"{k}: {n:g} x, {us / 1e3:.4f} ms" for k, n, us in rows))
+              + " | ".join(f"{k}: {n:g} x, {ms:.4f} ms" for k, n, ms in rows))
         phases = chol_phases(H, g, lam, reps)
         nb = -(-dim // 32)
         c.log(f"[chol_phases] dim={dim} panels={nb} median ms of {reps} solves: "
               + " ".join(f"{k}={v:.4f}" for k, v in phases.items())
               + f" us_per_panel={1e3 * phases['factorization'] / nb:.2f}")
+
+
+def chol_parity(source):
+    """Kernel 1 against another version of its source (``source``: a
+    damped_cholesky.cu with the same C entry points, e.g. from ``git show
+    REV:triangulation_in_deformable_scenes_torch/csrc/damped_cholesky.cu``),
+    built into a library of its own: the output entries that differ bit for
+    bit on chip_smoke.py's synthetic systems, the main path's first system
+    and the condition-1e6 one."""
+    import ctypes
+
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
+    from triangulation_in_deformable_scenes_torch.models import deformable
+    from triangulation_in_deformable_scenes_torch.ops import _nvcc, lm
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = os.path.join(tmp, "libother.so")
+        subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, "-shared", "-o", lib_path, source],
+                       check=True, capture_output=True)
+        other = ctypes.CDLL(lib_path)
+    vp = ctypes.c_void_p
+    other.tids_damped_solve.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
+    other.tids_damped_solve_pad.argtypes = [ctypes.c_int]
+
+    def solve_other(H, g, lam):
+        n = H.shape[0]
+        npad = other.tids_damped_solve_pad(n)
+        o = dict(dtype=torch.float32, device="cuda")
+        x, L, Linv, vecs = torch.empty(n, **o), torch.empty(npad * npad, **o), torch.empty(npad * 32, **o), \
+            torch.empty(4, npad, **o)
+        lam_t = torch.full((1,), float(lam), **o)
+        err = other.tids_damped_solve(
+            H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n, L.data_ptr(), Linv.data_ptr(),
+            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        c.check(err == 0, f"the other kernel failed: cudaError_t {err}")
+        return x
+
+    cases = []
+    for dim in (1, 33, 100, 377, 728, 746, 1448, 2591):
+        H, g, lam = c.make_system(dim, seed=dim)
+        cases.append((f"synthetic {dim}", torch.as_tensor(H, device="cuda"), torch.as_tensor(g, device="cuda"), lam))
+    data, state, hyper = c._first_problem(240)
+    H, g = deformable.build_system("KB8", data, hyper, state, deformable.MODELS[sc.sweep_config().opt_model])
+    cases.append(("main path 1448", H, g, float(lm.TAU * H.diagonal().max())))
+    H, g = c.make_ill_conditioned(1448, c.ILL_COND, seed=7)
+    cases.append(("condition 1e6, 1448", H, g, 0.0))
+    for label, H, g, lam in cases:
+        x, xo = dc.damped_solve_cuda(H, g, lam), solve_other(H, g, lam)
+        torch.cuda.synchronize()
+        c.log(f"[chol_parity] {label}: {int((x != xo).sum())} of {x.numel()} entries differ, "
+              f"max |diff| / max |x| {float((x - xo).abs().max() / xo.abs().max()):.3e}")
 
 
 CHOL_PHASES = ("set-up", "factorization", "backward_1", "residual", "solve_pair_2")
@@ -260,6 +310,8 @@ def main(argv):
             profiler()
         elif name == "chol_profile":
             chol_profile()
+        elif name.startswith("chol_parity="):
+            chol_parity(name.split("=", 1)[1])
         else:
             print(f"unknown diagnostic {name!r}", file=sys.stderr)
             return 2

@@ -163,30 +163,46 @@ __device__ __forceinline__ void tile_dot(const float* P, const float* Q, float a
   }
 }
 
+// a / b rounded as IEEE division rounds it, from y = the correctly rounded
+// 1 / b: one correction step (Markstein) is exact for operands away from
+// overflow and underflow, and has no slow-path branch, unlike division.
+__device__ __forceinline__ float div_by(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
+
 // One warp: Cholesky factor of the 32x32 tile whose row `lane` is in a[]
 // (lower triangle read only), then its inverse. Leaves L_kk row-major in Lr
 // (zeros above the diagonal) and Linv_k row-major in Inv (both stride TS).
 // Step j broadcasts the pivot by shuffle and column j of L through LsT
 // (row j of L^T), read as 16-byte broadcasts. Every index is a compile-time
-// constant after unrolling, so a[] and x[] stay in registers.
-__device__ __forceinline__ void factor_diag(float (&a)[T], float* Lr, float* LsT, float* dinv, float* Inv) {
+// constant after unrolling, so a[] and x[] stay in registers. Each step
+// rounds as the multi-launch version of this kernel did (l = a / l_jj and
+// Linv's quotients rounded as by IEEE division, the product l_r l_c rounded
+// before it is subtracted), so that the LM paths take the same accept
+// decisions as with it. ldiag/lrcp receive l_jj and its reciprocal.
+__device__ __forceinline__ void factor_diag(float (&a)[T], float* Lr, float* LsT, float* ldiag, float* lrcp,
+                                            float* Inv) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     const float ljj = sqrtf(__shfl_sync(FULL, a[j], j));
-    const float inv = 1.0f / ljj;
-    const float l = lane < j ? 0.0f : (lane == j ? ljj : a[j] * inv);
+    const float rj = __frcp_rn(ljj);
+    const float l = lane < j ? 0.0f : (lane == j ? ljj : div_by(a[j], ljj, rj));
     a[j] = l;
     LsT[j * T + lane] = l;
-    if (lane == 0) dinv[j] = inv;
+    if (lane == 0) {
+      ldiag[j] = ljj;
+      lrcp[j] = rj;
+    }
     __syncwarp();
 #pragma unroll
     for (int q = (j + 1) / 4; q < T / 4; ++q) {
       const float4 v = *reinterpret_cast<const float4*>(LsT + j * T + 4 * q);
-      if (4 * q + 0 > j) a[4 * q + 0] = fmaf(-l, v.x, a[4 * q + 0]);
-      if (4 * q + 1 > j) a[4 * q + 1] = fmaf(-l, v.y, a[4 * q + 1]);
-      if (4 * q + 2 > j) a[4 * q + 2] = fmaf(-l, v.z, a[4 * q + 2]);
-      if (4 * q + 3 > j) a[4 * q + 3] = fmaf(-l, v.w, a[4 * q + 3]);
+      if (4 * q + 0 > j) a[4 * q + 0] -= __fmul_rn(l, v.x);
+      if (4 * q + 1 > j) a[4 * q + 1] -= __fmul_rn(l, v.y);
+      if (4 * q + 2 > j) a[4 * q + 2] -= __fmul_rn(l, v.z);
+      if (4 * q + 3 > j) a[4 * q + 3] -= __fmul_rn(l, v.w);
     }
   }
 #pragma unroll
@@ -206,7 +222,7 @@ __device__ __forceinline__ void factor_diag(float (&a)[T], float* Lr, float* LsT
       if (4 * q + 2 < r) acc = fmaf(-v.z, x[4 * q + 2], acc);
       if (4 * q + 3 < r) acc = fmaf(-v.w, x[4 * q + 3], acc);
     }
-    x[r] = acc * dinv[r];
+    x[r] = div_by(acc, ldiag[r], lrcp[r]);
   }
 #pragma unroll
   for (int r = 0; r < T; ++r) Inv[r * TS + lane] = x[r];
@@ -222,6 +238,17 @@ __device__ __forceinline__ float dot_strip(const float (&v)[T], const float* vk)
   float acc = 0.0f;
 #pragma unroll
   for (int c = 0; c < T; ++c) acc = fmaf(v[c], vk[c], acc);
+  return acc;
+}
+
+// The same dot product summed in groups of four, as the multi-launch
+// version of this kernel summed its forward solve (the same rounding).
+__device__ __forceinline__ float dot_strip4(const float (&v)[T], const float* vk) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 0; q < T / 4; ++q)
+    acc += v[4 * q] * vk[4 * q] + v[4 * q + 1] * vk[4 * q + 1] + v[4 * q + 2] * vk[4 * q + 2] +
+           v[4 * q + 3] * vk[4 * q + 3];
   return acc;
 }
 
@@ -270,14 +297,14 @@ __device__ void substitute(const Args& a, float* ys, float* lbuf, float* vk) {
     }
     __syncthreads();
     if (tid < T) ys[k * T + tid] = vk[tid];
-    if (r0 < hi) ys[r0] -= dot_strip(v0, vk);
-    if (r1 < hi) ys[r1] -= dot_strip(v1, vk);
+    if (r0 < hi) ys[r0] -= FWD ? dot_strip4(v0, vk) : dot_strip(v0, vk);
+    if (r1 < hi) ys[r1] -= FWD ? dot_strip4(v1, vk) : dot_strip(v1, vk);
     for (int r = r1 + THREADS; r < hi; r += 2 * THREADS) {
       const int r2 = r + THREADS;
       load_strip(v0, blk + r, npad);
       if (r2 < hi) load_strip(v1, blk + r2, npad);
-      ys[r] -= dot_strip(v0, vk);
-      if (r2 < hi) ys[r2] -= dot_strip(v1, vk);
+      ys[r] -= FWD ? dot_strip4(v0, vk) : dot_strip(v0, vk);
+      if (r2 < hi) ys[r2] -= FWD ? dot_strip4(v1, vk) : dot_strip(v1, vk);
     }
   }
   cp_async_wait<0>();
@@ -288,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   __shared__ float sc[2 * T];
-  __shared__ float dinv[T];
+  __shared__ float ldiag[T], lrcp[T];
   __shared__ __align__(16) float vk[T];
   __shared__ float bc[T], yc[T];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -387,7 +414,7 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
           r[4 * q + 2] = v.z;
           r[4 * q + 3] = v.w;
         }
-        factor_diag(r, Lr, LsT, dinv, Inv);
+        factor_diag(r, Lr, LsT, ldiag, lrcp, Inv);
         __syncwarp();
         float acc = 0.0f;  // y_c = Linv_c b_c
 #pragma unroll
@@ -425,10 +452,10 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
         *reinterpret_cast<float4*>(a.L + (cc + r) * npad + i0 + 4 * q) =
             *reinterpret_cast<const float4*>(Tb + r * TS + 4 * q);
         if (tid < T) {  // b_i -= L_ic y_c
-          float acc1 = 0.0f;
+          float li[T];
 #pragma unroll
-          for (int m = 0; m < T; ++m) acc1 = fmaf(Tb[m * TS + tid], yc[m], acc1);
-          a.b[i0 + tid] = __ldcg(a.b + i0 + tid) - acc1;
+          for (int m = 0; m < T; ++m) li[m] = Tb[m * TS + tid];
+          a.b[i0 + tid] = __ldcg(a.b + i0 + tid) - dot_strip4(li, yc);
         }
       }
       __syncthreads();
