@@ -207,20 +207,6 @@ def chol_parity(source):
     other.tids_damped_solve.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
     other.tids_damped_solve_pad.argtypes = [ctypes.c_int]
 
-    def solve_other(H, g, lam):
-        n = H.shape[0]
-        npad = other.tids_damped_solve_pad(n)
-        o = dict(dtype=torch.float32, device="cuda")
-        x, L, Linv, vecs = torch.empty(n, **o), torch.empty(npad * npad, **o), torch.empty(npad * 32, **o), \
-            torch.empty(4, npad, **o)
-        lam_t = torch.full((1,), float(lam), **o)
-        err = other.tids_damped_solve(
-            H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n, L.data_ptr(), Linv.data_ptr(),
-            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        c.check(err == 0, f"the other kernel failed: cudaError_t {err}")
-        return x
-
     cases = []
     for dim in (1, 33, 100, 377, 728, 746, 1448, 2591):
         H, g, lam = c.make_system(dim, seed=dim)
@@ -231,7 +217,7 @@ def chol_parity(source):
     H, g = c.make_ill_conditioned(1448, c.ILL_COND, seed=7)
     cases.append(("condition 1e6, 1448", H, g, 0.0))
     for label, H, g, lam in cases:
-        x, xo = dc.damped_solve_cuda(H, g, lam), solve_other(H, g, lam)
+        x, (xo, _) = dc.damped_solve_cuda(H, g, lam), c.chol_call(other, "tids_damped_solve", H, g, lam)
         torch.cuda.synchronize()
         c.log(f"[chol_parity] {label}: {int((x != xo).sum())} of {x.numel()} entries differ, "
               f"max |diff| / max |x| {float((x - xo).abs().max() / xo.abs().max()):.3e}")
@@ -250,20 +236,10 @@ def chol_phases(H, g, lam, reps):
 
     from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
 
-    lib = dc._load()
-    n = H.shape[0]
-    npad = lib.tids_damped_solve_pad(n)
-    o = dict(dtype=torch.float32, device=H.device)
-    x, L, Linv, vecs = torch.empty(n, **o), torch.empty(npad * npad, **o), torch.empty(npad * 32, **o), \
-        torch.empty(4, npad, **o)
     stamps = torch.zeros(len(CHOL_PHASES) + 1, dtype=torch.int64, device=H.device)
     spans = []
     for _ in range(reps + 1):
-        err = lib.tids_damped_solve_timed(
-            H.data_ptr(), g.data_ptr(), lam.data_ptr(), x.data_ptr(), n, L.data_ptr(), Linv.data_ptr(),
-            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(), stamps.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        c.check(err == 0, f"timed kernel call failed: cudaError_t {err}")
+        c.chol_call(dc._load(), "tids_damped_solve_timed", H, g, lam, stamps.data_ptr())
         spans.append(torch.diff(stamps).cpu().tolist())
     spans = spans[1:]
     out = {name: statistics.median(s[i] for s in spans) / 1e6 for i, name in enumerate(CHOL_PHASES)}

@@ -8,7 +8,7 @@ Phases, each of which must pass (nothing is caught):
 1. card and build: name and power limit from nvidia-smi; the build of every
    source in ``triangulation_in_deformable_scenes_torch/csrc`` (one nvcc per
    source, all started together, linked into one library), timed, with
-   ptxas's register and shared-memory lines for both kernels.
+   ptxas's register, shared-memory and spill lines for every kernel.
 2. kernel 1 (damped Cholesky): the CUDA kernel against its plain PyTorch
    version on the card at dims 377 and 746 (the sequence path's rigid and
    general solves), 728 (the 240-point rigid solve), 1448 (the 240-point
@@ -286,15 +286,12 @@ def make_ill_conditioned(dim, cond, seed, upper_eta=0.0):
     return H, g
 
 
-def kernel_x_and_x0(H, g, lam):
-    """The kernel's x and its own unrefined solution x0 (steps 1-4 of
-    csrc/damped_cholesky.cu), which stays in the workspace. A direct call of
-    the C entry point, so it is not counted in ``LAUNCHES``."""
+def chol_call(lib, entry, H, g, lam, *extra):
+    """One direct call of kernel 1's C entry point ``entry`` (in ``lib``)
+    with a workspace of its own, not counted in ``LAUNCHES``; ``extra``
+    pointers go before the stream. Returns x and the workspace's x0."""
     import torch
 
-    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
-
-    lib = dc._load()
     n = H.shape[0]
     npad = lib.tids_damped_solve_pad(n)
     o = dict(dtype=torch.float32, device=H.device)
@@ -303,14 +300,25 @@ def kernel_x_and_x0(H, g, lam):
     Linv = torch.empty(npad * 32, **o)
     vecs = torch.empty(4, npad, **o)  # s, b, y, x0
     lam_t = torch.full((1,), float(lam), **o)
-    err = lib.tids_damped_solve(
+    err = getattr(lib, entry)(
         H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n, L.data_ptr(),
         Linv.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-        vecs[3].data_ptr(), torch.cuda.current_stream().cuda_stream,
+        vecs[3].data_ptr(), *extra, torch.cuda.current_stream().cuda_stream,
     )
-    check(err == 0, f"direct kernel call failed: cudaError_t {err}")
+    check(err == 0, f"direct kernel call {entry} failed: cudaError_t {err}")
+    return x, vecs[3, :n]
+
+
+def kernel_x_and_x0(H, g, lam):
+    """The kernel's x and its own unrefined solution x0 (steps 1-4 of
+    csrc/damped_cholesky.cu), which stays in the workspace."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    x, x0 = chol_call(dc._load(), "tids_damped_solve", H, g, lam)
     torch.cuda.synchronize()
-    return x, vecs[3, :n].clone()
+    return x, x0.clone()
 
 
 def accuracy(H, g, lam):
@@ -1156,7 +1164,7 @@ def setup():
     log(f"[build] {os.path.relpath(lib, REPO)} from {len(_nvcc.sources())} sources in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in _nvcc.BUILD_LOG.splitlines():
-        if line.startswith("==") or ("ptxas info" in line and ("Used" in line or "Compiling" in line)):
+        if line.startswith("==") or "spill" in line or ("ptxas info" in line and ("Used" in line or "Compiling" in line)):
             log(f"[build] {line.strip()}")
     return card
 
