@@ -77,15 +77,15 @@ def damped_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
     npad = lib.tids_damped_solve_pad(n)
     opts = dict(dtype=torch.float32, device=H.device)
     x = torch.empty(n, **opts)
-    # One allocation for the workspace: L npad^2, Linv npad*32, then s, b, y
-    # and x0 of npad each (every part starts on a 128-byte boundary).
-    work = torch.empty(npad * (npad + 36), **opts)
-    L = work.data_ptr()
-    Linv = L + 4 * npad * npad
-    s, b, y, x0 = (Linv + 4 * npad * (32 + i) for i in range(4))
+    L = torch.empty(npad * npad, **opts)
+    Linv = torch.empty(npad * 32, **opts)
+    vecs = torch.empty(4, npad, **opts)  # s, b, y, x0
     stream = torch.cuda.current_stream(H.device).cuda_stream
-    err = lib.tids_damped_solve(H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n,
-                                L, Linv, s, b, y, x0, stream)
+    err = lib.tids_damped_solve(
+        H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n,
+        L.data_ptr(), Linv.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+        vecs[2].data_ptr(), vecs[3].data_ptr(), stream,
+    )
     if err != 0:
         raise RuntimeError(f"damped-Cholesky kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
