@@ -430,7 +430,7 @@ def kernel_case(label, Hc, gc, lam, rel_tol=KERNEL_REL_TOL):
     launches = device_launches(solve, REPEATS)
     seen = sum(count for count, _ in launches.values())
     check(seen == REPEATS and all("damped_solve_kernel" in name for name in launches),
-          f"{REPEATS} solves issued {launches} ({label}, dim {dim}), not one damped_solve_kernel launch each")
+          f"{REPEATS} solves launched {launches} ({label}, dim {dim}), not one damped_solve_kernel each")
     device_ms = sum(ms for _, ms in launches.values())
 
     Hbad = Hc.clone()

@@ -141,7 +141,7 @@ __device__ __forceinline__ void tri_index(int t, int& i, int& j) {
   j = t - r * (r + 1) / 2;
 }
 
-// Issue the copy of a 32x32 tile (row stride `stride` floats) into shared
+// Start the copy of a 32x32 tile (row stride `stride` floats) into shared
 // memory at stride TS: one 16-byte piece per thread.
 __device__ __forceinline__ void stage_tile(float* dst, const float* src, int stride) {
   const int r = threadIdx.x >> 3, q = threadIdx.x & 7;
