@@ -5,9 +5,15 @@ Tolerances:
 
 - integer-valued stages (FAST score, cell rule, NMS, masks) are exact: their
   arithmetic on 8-bit images is exact in f32;
-- the pyramid: 1e-3 grey levels (torch's antialiased bilinear resize and
-  ``jax.image.resize`` compute the same weights in other orders; measured
-  ~2e-4 on this frame);
+- the resampling weights: the port's ``resize_weights`` against the
+  matrices that ``jax.image.resize`` builds under ``jit`` (XLA fuses
+  ``sample_f`` into one FMA and multiplies by ``1 / kernel_scale``), in ulp
+  of f32: equal at 1024 -> 853 and 1024 -> 711, at most 3 at 853 -> 711
+  (17 entries in 7 columns, where XLA's normalisation rounds otherwise);
+- the pyramid: 2e-4 grey levels (the same weights; JAX contracts them by
+  matmul, the port by a band in row order, so the sums round in other
+  orders; measured 1.07e-4 on this frame, 6.6e-4 before the port took
+  JAX's weights);
 - angles 1e-3 deg (the moment sums on resampled levels round in other orders;
   ~1e-4 measured);
 - the patch blur 1e-4 (a seven-slice sum against XLA's convolution);
@@ -91,13 +97,27 @@ def test_generate_masks_exact(with_border):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("n_in,n_out,max_ulp", [(1024, 853, 0), (1024, 711, 0), (853, 711, 3)])
+def test_resize_weights_match_jitted_jax(n_in, n_out, max_ulp):
+    import jax
+    from jax._src.image import scale as jax_scale
+
+    want = np.asarray(jax.jit(lambda: jax_scale.compute_weight_mat(
+        n_in, n_out, n_out / n_in, 0.0, jax_scale._fill_triangle_kernel, True))())
+    got = TF.resize_weights(n_in, n_out)
+    assert got.dtype == np.float32 and got.shape == want.shape == (n_in, n_out)
+    assert (got >= 0).all() and (want >= 0).all()
+    ulp = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulp.max() <= max_ulp
+
+
 def test_build_pyramid_close():
     im = scene_gray()
     want = JF.build_pyramid(jnp.asarray(im), 4, 1.2)
     got = TF.build_pyramid(t(im), 4, 1.2)
     for w, g in zip(want, got):
         assert tuple(g.shape) == tuple(w.shape)
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=2e-4)
 
 
 def test_features_per_level_same():

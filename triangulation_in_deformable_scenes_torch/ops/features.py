@@ -28,9 +28,12 @@ Hazards handled here (ROADMAP Queue C):
   values and ``torch.topk`` does not; ``topk_level`` takes the first k of a
   stable descending sort, which orders ties as JAX does.
 - **Resampling.** ``jax.image.resize(..., "linear")`` antialiases when it
-  downscales; ``resize_linear`` asks ``F.interpolate`` for the same
-  (``antialias=True``). The two agree to ~1e-3 grey levels, not bit for bit,
-  so keypoints on levels >= 1 can flip at a threshold or a tie.
+  downscales, with weight matrices that XLA rounds in its own way under
+  ``jit``. ``resize_weights`` builds the same matrices (within a few ulp;
+  equal at 1024 -> 853 and 1024 -> 711) and ``resize_linear`` applies them
+  as a band on the image's device. JAX contracts them by matmul, so levels
+  agree to ~1e-4 grey levels, not bit for bit, and keypoints on levels >= 1
+  can still flip at a threshold or a tie.
 - **Patches near edges.** ``dynamic_slice`` clamps its start in silence and
   ``DESC_R`` = 21 > ``EDGE`` = 19; ``_extract_patches`` instead checks that
   every valid centre lies at least ``DESC_R`` inside the padded level (the
@@ -107,14 +110,67 @@ def _gauss(ksize, sigma, dtype, device):
     return torch.as_tensor(k / k.sum(), dtype=dtype, device=device)
 
 
+def resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] f32 weights of ``jax.image.resize(..., "linear")`` along
+    one axis (``compute_weight_mat`` in jax's ``image/scale.py``), rounded as
+    XLA rounds them under ``jit``: ``sample_f`` by one fused multiply-add,
+    ``x`` by a multiply with the reciprocal of ``kernel_scale``, the column
+    sums in row order."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    j = np.arange(n_out, dtype=np.float64) + 0.5
+    sample_f = (j * np.float64(inv_scale) - 0.5).astype(np.float32)  # rounded once
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) * (np.float32(1.0) / kernel_scale)
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = np.cumsum(w, axis=0, dtype=np.float32)[-1]
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+_BANDS = {}
+
+
+def _band(n_in: int, n_out: int, device):
+    """``resize_weights`` as a band: (rows [T, n_out] int64, weights [T,
+    n_out] f32) with output j = sum over t of weights[t, j] * input[rows[t,
+    j]], t ascending; T is the widest column's run of nonzero rows
+    (at most ceil(2 kernel_scale) + 1). Cached by sizes and device."""
+    key = (n_in, n_out, str(device))
+    if key not in _BANDS:
+        W = resize_weights(n_in, n_out)
+        nz = W != 0
+        lo = np.where(nz.any(0), nz.argmax(0), 0)
+        hi = np.where(nz.any(0), n_in - 1 - nz[::-1].argmax(0), 0)
+        t = np.arange(int((hi - lo).max()) + 1)[:, None]
+        rows = np.minimum(lo[None, :] + t, n_in - 1)
+        wt = np.where(t <= (hi - lo)[None, :], W[rows, np.arange(n_out)[None, :]], 0).astype(np.float32)
+        _BANDS[key] = (torch.as_tensor(rows, device=device), torch.as_tensor(wt, device=device))
+    return _BANDS[key]
+
+
+def _resample_rows(im, n_out: int):
+    """[n_in, W] -> [n_out, W] along the first axis, by the band of
+    ``resize_weights`` (products summed in row order, each rounded)."""
+    rows, wt = _band(im.shape[0], n_out, im.device)
+    out = im[rows[0]] * wt[0][:, None]
+    for t in range(1, rows.shape[0]):
+        out = out + im[rows[t]] * wt[t][:, None]
+    return out
+
+
 def resize_linear(im, shape):
-    """Linear resampling of a [H, W] image to ``shape``, antialiased when it
-    downscales, as ``jax.image.resize(..., "linear")``."""
+    """Linear resampling of a [H, W] f32 image to ``shape``, antialiased when
+    it downscales, as ``jax.image.resize(..., "linear")``: JAX's own weights
+    (``resize_weights``), rows first, then columns."""
     shape = (int(shape[0]), int(shape[1]))
     if tuple(im.shape) == shape:
         return im
-    out = F.interpolate(im[None, None], size=shape, mode="bilinear", align_corners=False, antialias=True)
-    return out[0, 0]
+    if im.shape[0] != shape[0]:
+        im = _resample_rows(im, shape[0])
+    if im.shape[1] != shape[1]:
+        im = _resample_rows(im.T, shape[1]).T.contiguous()
+    return im
 
 
 def build_pyramid(im, n_scales: int, scale_factor: float):

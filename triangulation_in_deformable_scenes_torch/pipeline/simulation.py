@@ -17,8 +17,10 @@ journal blocks:
 7. the Experiment.txt journal.
 
 Device work is f32 on ``device`` (default ``cuda``; ``device="cpu"`` must be
-asked for). The solution visualisation and the map layer (``world_map``,
-``:257-281``) are not ported yet; ``SimulationResult.world_map`` is None.
+asked for). The solution visualisation (``show_scene`` / ``show_solution``,
+``:257-272``; A16) raises ``NotImplementedError``, and the map layer
+(``world_map``, ``:273-281``) is not ported yet; ``SimulationResult.world_map``
+is None.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ class SimulationResult:
 
 class SimulationPipeline:
     def __init__(self, cfg: Config, seed: int = 0, mesh_backend: str = "auto", device="cuda"):
+        if cfg.show_scene or cfg.show_solution:
+            raise NotImplementedError("the visualisers (showScene/showSolution) are ROADMAP item A16, not ported yet")
         self.cfg = cfg
         self.seed = seed
         self.mesh_backend = mesh_backend
