@@ -62,6 +62,10 @@ def small():
 
 @pytest.fixture(scope="module")
 def pcg_problem():
+    return pcg_problem_cpu()
+
+
+def pcg_problem_cpu():
     """The 36-point system of tests/test_pallas_pcg.py, assembled by the JAX
     package; the port gets the same blocks as tensors, so the solvers are
     compared on identical inputs."""
@@ -224,3 +228,55 @@ def test_cuda_pcg_kernel_matches_plain(pcg_problem, rtol):
     assert rel(x.cpu(), xp.cpu()) < 1e-4
     _, k0 = block_pcg.pcg_block_system_cuda(sys_c, nbr_c, b_c, lam, 9, 0.0)
     assert int(k0) == 9
+    for _ in range(20):
+        xr, kr = block_pcg.pcg_block_system_cuda(sys_c, nbr_c, b_c, lam, 64, rtol)
+        assert torch.equal(xr, x) and int(kr) == int(k)
+
+
+def _repeated(sys_t, nbr_t, m):
+    """The system as m independent copies of its points (the global block
+    scaled by m, so the whole stays positive definite)."""
+    n = nbr_t.shape[0]
+    tile = lambda t: t.repeat(m, *([1] * (t.dim() - 1)))
+    offs = (torch.arange(m) * n).repeat_interleave(n)[:, None]
+    nbr = torch.where(tile(nbr_t) < 0, tile(nbr_t), tile(nbr_t) + offs)
+    big = t_bs.BlockSystem(tile(sys_t.D), tile(sys_t.Bt), tile(sys_t.C), sys_t.Hg * m, tile(sys_t.g_p), sys_t.g_g * m)
+    return big, nbr
+
+
+def test_repeated_system_is_the_copies_solve():
+    """On the CPU: the repeated system that the strided-kernel case below
+    builds is positive definite and the plain PCG solves it."""
+    _, _, _, sys_t, nbr_t, _, lam = pcg_problem_cpu()
+    big, nbr = _repeated(sys_t, nbr_t, 3)
+    b = -t_bs.flat_gradient(big)
+    x, k = block_pcg.pcg_block_system_plain(big, nbr, b, lam, 200, 1e-6)
+    res = t_bs.block_matvec(big, nbr, x, lam) - b
+    assert 1 < k < 200
+    assert float(torch.linalg.norm(res)) <= 1e-4 * float(torch.linalg.norm(b))
+
+
+@pytest.mark.cuda
+def test_cuda_pcg_kernel_strided_beyond_the_resident_limit(pcg_problem):
+    """More points than the co-resident grid has warps: the strided kernel
+    (grid-stride over points, state in the workspace) against the plain
+    loop, and 20 calls bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    _, _, _, sys_t, nbr_t, _, lam = pcg_problem
+    lib = block_pcg._load()
+    n, K = nbr_t.shape
+    m = 1
+    while lib.tids_pcg_resident(n * m, K) != 0:
+        m += 1
+    big, nbr = _repeated(sys_t, nbr_t, m)
+    big, nbr = t_bs.BlockSystem(*(a.cuda() for a in big)), nbr.cuda()
+    b = -t_bs.flat_gradient(big)
+    assert lib.tids_pcg_grid(n * m, K) * 8 < n * m
+    x, k = block_pcg.pcg_block_system_cuda(big, nbr, b, lam, 64, 1e-2)
+    xp, kp = block_pcg.pcg_block_system_plain(big, nbr, b, lam, 64, 1e-2)
+    assert int(k) == kp
+    assert rel(x.cpu(), xp.cpu()) < 1e-4
+    for _ in range(20):
+        xr, kr = block_pcg.pcg_block_system_cuda(big, nbr, b, lam, 64, 1e-2)
+        assert torch.equal(xr, x) and int(kr) == int(k)

@@ -99,6 +99,14 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def stream_ptr(dev: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``dev``
+    (``torch.cuda.current_stream(dev).cuda_stream``, without making a
+    Stream object where torch offers the raw call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(dev.index) if raw is not None else torch.cuda.current_stream(dev).cuda_stream
+
+
 def lam_tensor(lam, like: torch.Tensor) -> torch.Tensor:
     """``lam`` (a float or a one-element tensor) as a contiguous one-element
     tensor of ``like``'s dtype on ``like``'s device."""

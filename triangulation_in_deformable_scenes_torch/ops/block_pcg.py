@@ -15,7 +15,9 @@ design. The TPU-only parts of that module (the lane "planes" transposes and
   on anything else. ``LAUNCHES``/``LAUNCHES_BY_DIM`` count its calls (one
   cooperative CUDA launch each); the kernel adds the iterations it took to
   a running total on the device (``iterations_total``), which nothing in
-  the LM loop reads.
+  the LM loop reads. A call allocates one tensor, its result (x and the
+  iteration count); the kernel's workspace is kept per device and point
+  count (``_workspace``).
 - ``pcg_block_system_plain`` is ``pcg_flex(block_matvec,
   block_jacobi_apply)`` with the same arguments: the CPU path and the
   oracle the kernel is held against.
@@ -40,6 +42,7 @@ LAUNCHES_BY_DIM = collections.Counter()
 
 _lib = None
 _totals = {}
+_workspaces = {}
 
 
 def _load():
@@ -51,10 +54,15 @@ def _load():
         lib.tids_pcg_solve.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
                                        vp, vp, vp, vp]
         lib.tids_pcg_solve.restype = ci
-        lib.tids_pcg_workspace_floats.argtypes = [ci]
+        lib.tids_pcg_solve_timed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+                                             vp, vp, vp, vp, vp]
+        lib.tids_pcg_solve_timed.restype = ci
+        lib.tids_pcg_workspace_floats.argtypes = [ci, ci]
         lib.tids_pcg_workspace_floats.restype = ctypes.c_longlong
-        lib.tids_pcg_grid.argtypes = [ci]
+        lib.tids_pcg_grid.argtypes = [ci, ci]
         lib.tids_pcg_grid.restype = ci
+        lib.tids_pcg_resident.argtypes = [ci, ci]
+        lib.tids_pcg_resident.restype = ci
         _lib = lib
     return _lib
 
@@ -69,12 +77,37 @@ def iterations_total(device) -> torch.Tensor:
     return _totals[dev]
 
 
+def _workspace(lib, dev, n: int, K: int) -> torch.Tensor:
+    """The kernel's workspace for ``n`` points with ``K`` neighbour slots on
+    ``dev``, made once and then reused by every solve of that size. Sharing
+    it is safe because the wrapper launches on PyTorch's current stream,
+    which orders the solves; two solves of one size on two streams at once
+    would race."""
+    key = (dev, n, K)
+    ws = _workspaces.get(key)
+    if ws is None:
+        floats = int(lib.tids_pcg_workspace_floats(n, K))
+        if floats < 0:
+            raise RuntimeError(f"block-PCG workspace query failed: cudaError_t {-floats}")
+        ws = _workspaces[key] = torch.zeros(floats, dtype=torch.float32, device=dev)
+    return ws
+
+
 def pcg_block_system_cuda(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: int, rtol: float):
     """(x, iterations) of the PCG solve by the CUDA kernel. ``sys`` is a
     ``BlockSystem`` of f32 CUDA tensors, ``nbr`` [N, K] int64 (-1 padded),
     ``b`` [6N + 8], ``lam`` a float or a one-element tensor. ``iterations``
-    is a one-element int32 tensor on the card. Launches on the current
+    is a one-element int32 tensor on the card, a view of the same result
+    tensor as x, so later calls leave it as it is. Launches on the current
     stream and does not synchronise."""
+    out = _solve(sys, nbr, b, lam, iters, rtol)
+    m = out.shape[0] - 1
+    return out[:m], out[m:].view(torch.int32)
+
+
+def _solve(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: int, rtol: float) -> torch.Tensor:
+    """One kernel launch; returns its result, [6N + 9] f32: x, then the
+    iteration count's int32 bits."""
     global LAUNCHES
     n, K = nbr.shape
     dev = b.device
@@ -83,33 +116,33 @@ def pcg_block_system_cuda(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: i
         raise ValueError("pcg_block_system_cuda takes the system, nbr and b on one CUDA device")
     if any(t.dtype != torch.float32 for t in tensors) or nbr.dtype != torch.int64:
         raise TypeError("pcg_block_system_cuda takes float32 blocks and b, and int64 nbr")
-    shapes = {"D": (n, 6, 6), "Bt": (n, K, 6, 6), "C": (n, 6, 8), "Hg": (8, 8)}
-    for name, want in shapes.items():
-        if tuple(getattr(sys, name).shape) != want:
-            raise ValueError(f"{name} has shape {tuple(getattr(sys, name).shape)}, expected {want}")
-    if tuple(b.shape) != (6 * n + 8,):
-        raise ValueError(f"b has shape {tuple(b.shape)}, expected ({6 * n + 8},)")
-    lib = _load()
-    D, Bt, C, Hg, b = (t.contiguous() for t in tensors)
+    D, Bt, C, Hg = sys.D, sys.Bt, sys.C, sys.Hg
+    if (D.shape != (n, 6, 6) or Bt.shape != (n, K, 6, 6) or C.shape != (n, 6, 8) or Hg.shape != (8, 8)
+            or b.shape != (6 * n + 8,)):
+        raise ValueError(f"block shapes D {tuple(D.shape)}, Bt {tuple(Bt.shape)}, C {tuple(C.shape)}, "
+                         f"Hg {tuple(Hg.shape)}, b {tuple(b.shape)} do not fit nbr {(n, K)}")
+    if not all(t.is_contiguous() for t in (*tensors, nbr)):
+        D, Bt, C, Hg, b, nbr = (t.contiguous() for t in (*tensors, nbr))
     if Bt.data_ptr() % 16:
         raise ValueError("Bt must be 16-byte aligned")
-    nbr = nbr.contiguous()
-    lam_t = _nvcc.lam_tensor(lam, b)
-    x = torch.empty_like(b)
-    ws = torch.empty(int(lib.tids_pcg_workspace_floats(n)), dtype=torch.float32, device=dev)
-    k = torch.empty(1, dtype=torch.int32, device=dev)
-    total = iterations_total(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _load()
+    if isinstance(lam, torch.Tensor) and lam.numel() == 1 and lam.dtype == torch.float32 and lam.device == dev:
+        lam_t = lam
+    else:
+        lam_t = _nvcc.lam_tensor(lam, b)
+    out = torch.empty(6 * n + 9, dtype=torch.float32, device=dev)
+    x = out.data_ptr()
     err = lib.tids_pcg_solve(
         D.data_ptr(), Bt.data_ptr(), C.data_ptr(), Hg.data_ptr(), nbr.data_ptr(), b.data_ptr(),
-        lam_t.data_ptr(), x.data_ptr(), n, K, int(iters), float(rtol) * float(rtol),
-        ws.data_ptr(), k.data_ptr(), total.data_ptr(), stream,
+        lam_t.data_ptr(), x, n, K, int(iters), float(rtol) * float(rtol),
+        _workspace(lib, dev, n, K).data_ptr(), x + 4 * (6 * n + 8), iterations_total(dev).data_ptr(),
+        _nvcc.stream_ptr(dev),
     )
     if err != 0:
         raise RuntimeError(f"block-PCG kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
     LAUNCHES_BY_DIM[6 * n + 8] += 1
-    return x, k
+    return out
 
 
 def pcg_block_system_plain(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: int, rtol: float):
@@ -125,7 +158,7 @@ def pcg_block_system(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: int, r
     """x of the PCG solve: the CUDA kernel for a CUDA tensor (it raises if it
     cannot launch), the plain version for a CPU tensor."""
     if b.device.type == "cuda":
-        return pcg_block_system_cuda(sys, nbr, b, lam, iters, rtol)[0]
+        return _solve(sys, nbr, b, lam, iters, rtol)[:-1]
     if b.device.type != "cpu":
         raise ValueError(f"no block PCG for device {b.device}")
     return pcg_block_system_plain(sys, nbr, b, lam, iters, rtol)[0]
