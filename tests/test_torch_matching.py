@@ -66,12 +66,47 @@ def _tie_problem():
     return kp1, d1, o1, v1, kp2, d2, o2, v2, sf
 
 
+def _lane_tie_problem():
+    """Ties that the CUDA kernel's lanes (lane l scans the columns j = l mod
+    32) must merge by column: rows whose best (distance 0) is attained at
+    columns (10, 11), (40, 72), (8, 33) where the higher lane holds the
+    lower column, (63, 64) and (255, 256) across lanes and 256-column tiles,
+    (5, 261) in one lane across tiles, (3, 34, 65) three ways; rows whose
+    second best ties in two lanes; rows far from every column; 611 columns,
+    a multiple of neither 32 nor 256."""
+    rng = np.random.default_rng(12)
+    n1, n2 = 64, 611
+    kp1 = rng.uniform(0, 600, size=(n1, 2)).astype(np.float32)
+    kp2 = rng.uniform(0, 600, size=(n2, 2)).astype(np.float32)
+    d1 = rng.integers(0, 2, size=(n1, 256)).astype(np.int8)
+    d2 = rng.integers(0, 2, size=(n2, 256)).astype(np.int8)
+    ties = [(10, 11), (40, 72), (8, 33), (63, 64), (255, 256), (5, 261), (3, 34, 65), (100, 395), (600, 610)]
+    for i, cols in enumerate(ties):
+        for k, j in enumerate(cols):
+            d2[j] = d1[i]
+            kp2[j] = kp1[i] + np.float32(0.5 * (k + 1))
+    for i, (j0, j1, j2) in enumerate([(120, 150, 151), (200, 231, 230)], start=len(ties)):
+        d2[j0] = d1[i]
+        kp2[j0] = kp1[i] + 0.5
+        for j in (j1, j2):
+            d2[j] = d1[i]
+            d2[j, :3] ^= 1
+            kp2[j] = kp1[i] - 0.5
+    kp1[40:50] = 5000.0
+    v1 = np.ones(n1, bool)
+    v1[50:54] = False
+    sf = np.array([1.2**o for o in range(4)], dtype=np.float32)
+    return kp1, d1, np.zeros(n1, np.int32), v1, kp2, d2, np.zeros(n2, np.int32), np.ones(n2, bool), sf
+
+
 CASES = {
     "random_128x128": lambda: _random_problem(np.random.default_rng(128 * 1000 + 128), 128, 128),
     "random_200x330": lambda: _random_problem(np.random.default_rng(200 * 1000 + 330), 200, 330),
     "random_100x513": lambda: _random_problem(np.random.default_rng(100 * 1000 + 513), 100, 513),
     "ties": _tie_problem,
+    "lane_ties": _lane_tie_problem,
 }
+WINDOW_5 = ("ties", "lane_ties")  # cases on a radius-5 window
 
 
 def _empty_rows():
@@ -83,7 +118,7 @@ def _empty_rows():
 @pytest.mark.parametrize("case", list(CASES) + ["empty_rows"])
 def test_plain_bit_identical_to_xla_and_pallas(case):
     args = _empty_rows() if case == "empty_rows" else CASES[case]()
-    kw = dict(KW, window_factor=5.0) if case == "ties" else KW
+    kw = dict(KW, window_factor=5.0) if case in WINDOW_5 else KW
     m_x, n_x = JM.search_for_initialization(*_jax_args(args), backend="xla", **kw)
     m_p, n_p = JP.fused_search_for_initialization(*_jax_args(args), interpret=True, **kw)
     m_t, n_t = TM.search_for_initialization(*_torch_args(args), **kw)
@@ -115,22 +150,26 @@ def _pallas_scan(args, window_factor, max_octave):
     return tuple(np.asarray(o)[:n1] for o in out)
 
 
-@pytest.mark.parametrize("case", ["random_200x330", "ties"])
+@pytest.mark.parametrize("case", ["random_200x330", "ties", "lane_ties"])
 def test_plain_scan_outputs_match_pallas_scan(case):
     """best_d, the first-occurrence argmin and second_d themselves, not only
-    the matches they lead to; on the tie case some rows have second == best."""
+    the matches they lead to; on the tie cases some rows have second == best."""
     args = CASES[case]()
-    wf = 5.0 if case == "ties" else KW["window_factor"]
+    wf = 5.0 if case in WINDOW_5 else KW["window_factor"]
     want = _pallas_scan(args, wf, KW["max_octave"])
     kp1, d1, o1, v1, kp2, d2, o2, v2, sf = _torch_args(args)
     r2, row_ok = TS.row_meta(kp1, o1, v1, sf, wf, KW["max_octave"])
     got = TS.match_scan_plain(kp1, r2, o1, row_ok, d1, kp2, o2, v2, d2)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
+    bd, b, sd = (g.numpy() for g in got)
     if case == "ties":
-        bd, b, sd = (g.numpy() for g in got)
         np.testing.assert_array_equal(b[:10], 2 * np.arange(10))
         assert (bd[:10] == 0).all() and (sd[:10] == 0).all()
+    if case == "lane_ties":
+        np.testing.assert_array_equal(b[:11], [10, 40, 8, 63, 255, 5, 3, 100, 600, 120, 200])
+        assert (bd[:11] == 0).all() and (sd[:9] == 0).all() and (sd[9:11] == 3).all()
+        assert (bd[40:54] == TS.BIG).all() and (b[40:54] == 0).all()
 
 
 def test_one_to_one_keeps_equal_distance_conflicts():
@@ -276,7 +315,7 @@ def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     args = _empty_rows() if case == "empty_rows" else CASES[case]()
-    wf = 5.0 if case == "ties" else KW["window_factor"]
+    wf = 5.0 if case in WINDOW_5 else KW["window_factor"]
     kp1, d1, o1, v1, kp2, d2, o2, v2, sf = _torch_args(args, device="cuda")
     r2, row_ok = TS.row_meta(kp1, o1, v1, sf, wf, KW["max_octave"])
     before = TS.LAUNCHES
@@ -286,3 +325,5 @@ def test_cuda_kernel_matches_plain(case):
     want = TS.match_scan_plain(kp1, r2, o1, row_ok, d1, kp2, o2, v2, d2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    for _ in range(20):
+        assert all(torch.equal(g, w) for g, w in zip(TS.match_scan_cuda(kp1, r2, o1, row_ok, d1, kp2, o2, v2, d2), want))

@@ -14,17 +14,23 @@ fused_search_for_initialization`` (its scan ``_match_scan`` :105, body
 ``_match_kernel`` :45). Bound: per pair a window test (8 operations) and,
 where allowed, 8 XOR + 8 popc + adds over 32 bytes of packed bits; the
 inputs are ~48 bytes a key, so at the path's sizes (1000 x 1000) the bound
-is well under a microsecond and the kernel is latency-bound. Design: one
-thread per reference row with its 8 descriptor words, window and octave in
-registers; columns staged through shared memory in tiles; best, argmin and
-second kept in registers and updated in column order, so the first
-occurrence wins; no atomics, so results repeat to the bit. The window test
-rounds each op (``__fmul_rn``/``__fadd_rn``, no FMA contraction) and takes
-r^2 from ``row_meta``, so keys on the circle fall as in the plain version.
+is well under a microsecond and the kernel is latency-bound. Design: two
+CUDA launches per scan. The first packs both sides' [N, 256] uint8 bits
+into [N, 8] uint32 words with ``__ballot_sync`` (the layout of
+``pack_bits``, which stays as its oracle); the second gives each reference
+row a warp, whose lanes scan every 32nd column of shared-memory tiles in
+ascending order and keep their own best, argmin and second, then merge
+them by (distance, column), so the first occurrence wins as in the plain
+version; no atomics, so results repeat to the bit. The window test rounds
+each op (``__fmul_rn``/``__fadd_rn``, no FMA contraction) and takes r^2
+from ``row_meta``, so keys on the circle fall as in the plain version.
 
-- ``match_scan_cuda`` packs the [N, 256] uint8 bits into [N, 8] uint32
-  words, launches the kernel on CUDA tensors on one device and raises on
-  anything else. ``LAUNCHES`` counts its launches.
+- ``match_scan_cuda`` launches the kernels on CUDA tensors on one device
+  and raises on anything else; it reads the octaves (int32), masks (bool)
+  and bits (uint8) as ``matching.search_for_initialization`` hands them
+  over, allocates its result and keeps the packed words in a workspace per
+  device. ``LAUNCHES`` counts its calls (one scan, two CUDA launches,
+  each).
 - ``match_scan_plain`` is the dense formula of ``matching.py:91-113``: the
   CPU path and the oracle the kernel is held against.
 - ``match_scan`` is what ``matching.search_for_initialization`` calls: a
@@ -41,11 +47,12 @@ from . import _nvcc
 
 BIG = 1_000_000.0
 
-# Launches of the kernel (one per scan), read by chip_smoke.py to show that
-# the sequence path ran through the kernel.
+# Calls of the kernel wrapper (one scan each), read by chip_smoke.py to show
+# that the sequence path ran through the kernel.
 LAUNCHES = 0
 
 _lib = None
+_packed = {}
 
 
 def _load():
@@ -54,7 +61,7 @@ def _load():
         lib = _nvcc.load()
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        lib.tids_match_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+        lib.tids_match_scan.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp]
         lib.tids_match_scan.restype = ci
         _lib = lib
     return _lib
@@ -80,16 +87,30 @@ def pack_bits(desc) -> torch.Tensor:
 
 def _aligned(t, nbytes):
     """``t`` contiguous with its data on an ``nbytes`` boundary (the kernel
-    reads float2 and uint4 vectors)."""
+    reads float2 vectors): ``t`` itself where it already is."""
+    if t.is_contiguous() and t.data_ptr() % nbytes == 0:
+        return t
     t = t.contiguous()
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
+def _packed_words(dev, rows: int) -> torch.Tensor:
+    """The device's workspace for ``rows`` packed descriptors ([rows, 8]
+    int32 at least), grown when a scan needs more. Launches are ordered on
+    PyTorch's current stream, so scans that share it do not race; scans on
+    two streams at once would."""
+    ws = _packed.get(dev)
+    if ws is None or ws.shape[0] < rows:
+        ws = _packed[dev] = torch.empty(max(rows, 2048), 8, dtype=torch.int32, device=dev)
+    return ws
+
+
 def match_scan_cuda(kp_ref, r2, octave_ref, row_ok, desc_ref, kp_cur, octave_cur, valid_cur, desc_cur):
     """(best_d [N1] f32, best [N1] int32, second_d [N1] f32) by the CUDA
-    kernel. Keypoints [N, 2] f32, r2 [N1] f32, octaves int32, masks bool,
-    descriptors [N, 256] 0/1, all on one CUDA device. Launches on the
-    current stream and does not synchronise."""
+    kernel, three views of one result tensor. Keypoints [N, 2] f32, r2 [N1]
+    f32, octaves int32, masks bool, descriptors [N, 256] uint8 0/1, all on
+    one CUDA device. Launches on the current stream and does not
+    synchronise."""
     global LAUNCHES
     tensors = (kp_ref, r2, octave_ref, row_ok, desc_ref, kp_cur, octave_cur, valid_cur, desc_cur)
     dev = kp_ref.device
@@ -101,27 +122,29 @@ def match_scan_cuda(kp_ref, r2, octave_ref, row_ok, desc_ref, kp_cur, octave_cur
     shapes = [(kp_ref, (n1, 2)), (r2, (n1,)), (octave_ref, (n1,)), (row_ok, (n1,)), (desc_ref, (n1, 256)),
               (kp_cur, (n2, 2)), (octave_cur, (n2,)), (valid_cur, (n2,)), (desc_cur, (n2, 256))]
     for t, want in shapes:
-        if tuple(t.shape) != want:
+        if t.shape != want:
             raise ValueError(f"input of shape {tuple(t.shape)}, expected {want}")
     if kp_ref.dtype != torch.float32 or kp_cur.dtype != torch.float32 or r2.dtype != torch.float32:
         raise TypeError("match_scan_cuda takes float32 keypoints and r2")
+    if octave_ref.dtype != torch.int32 or octave_cur.dtype != torch.int32:
+        raise TypeError("match_scan_cuda takes int32 octaves")
     if row_ok.dtype != torch.bool or valid_cur.dtype != torch.bool:
         raise TypeError("match_scan_cuda takes bool masks")
+    if desc_ref.dtype != torch.uint8 or desc_cur.dtype != torch.uint8:
+        raise TypeError("match_scan_cuda takes uint8 descriptor bits")
     lib = _load()
-    kp_ref, kp_cur, r2 = _aligned(kp_ref, 8), _aligned(kp_cur, 8), r2.contiguous()
-    oct_r = octave_ref.to(torch.int32).contiguous()
-    oct_c = octave_cur.to(torch.int32).contiguous()
-    row_ok, valid_cur = row_ok.contiguous(), valid_cur.contiguous()
-    bits_r = pack_bits(desc_ref)
-    bits_c = pack_bits(desc_cur)
-    best_d = torch.empty(n1, dtype=torch.float32, device=dev)
-    best = torch.empty(n1, dtype=torch.int32, device=dev)
-    second_d = torch.empty(n1, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    kp_ref, kp_cur = _aligned(kp_ref, 8), _aligned(kp_cur, 8)
+    r2, octave_ref, row_ok, desc_ref, octave_cur, valid_cur, desc_cur = (
+        t if t.is_contiguous() else t.contiguous()
+        for t in (r2, octave_ref, row_ok, desc_ref, octave_cur, valid_cur, desc_cur))
+    words = _packed_words(dev, n1 + n2)
+    out = torch.empty(3, n1, dtype=torch.float32, device=dev)
+    best_d, best, second_d = out[0], out[1].view(torch.int32), out[2]
     err = lib.tids_match_scan(
-        kp_ref.data_ptr(), r2.data_ptr(), oct_r.data_ptr(), row_ok.data_ptr(), bits_r.data_ptr(),
-        kp_cur.data_ptr(), oct_c.data_ptr(), valid_cur.data_ptr(), bits_c.data_ptr(), n1, n2,
-        best_d.data_ptr(), best.data_ptr(), second_d.data_ptr(), stream,
+        kp_ref.data_ptr(), r2.data_ptr(), octave_ref.data_ptr(), row_ok.data_ptr(), desc_ref.data_ptr(),
+        kp_cur.data_ptr(), octave_cur.data_ptr(), valid_cur.data_ptr(), desc_cur.data_ptr(), n1, n2,
+        words.data_ptr(), words[n1].data_ptr(), best_d.data_ptr(), best.data_ptr(), second_d.data_ptr(),
+        _nvcc.stream_ptr(dev),
     )
     if err != 0:
         raise RuntimeError(f"match-scan kernel launch failed: cudaError_t {err}")
