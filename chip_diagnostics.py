@@ -2,22 +2,24 @@
 """Diagnostics of the torch port on one NVIDIA card, beside chip_smoke.py.
 They print readings and check only what is stated; PERF.md cites them.
 
-    python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [rounding] [profiler]
+    python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [pcg_profile] [rounding] [profiler]
     python3 chip_diagnostics.py chol_parity=OTHER_damped_cholesky.cu
 
-(no argument runs the first six)
+(no argument runs the first seven)
 
 - ``mutants``: copies the package and chip_smoke.py into a temporary
-  directory, removes one term of ``csrc/block_pcg.cu`` there (the neighbour
-  products, the point-to-global coupling in the point rows or in the global
-  rows, Hg, the preconditioner), and prints for each the tight-solve
-  residuals of chip_smoke.py's two right-hand sides and the check of
-  ``chip_smoke.pcg_case(861)`` that fails. Exits non-zero if a broken
-  kernel passes that phase.
+  directory, breaks ``csrc/block_pcg.cu`` there in one place (no neighbour
+  products, no point-to-global coupling in the point rows or in the global
+  rows, no Hg, no preconditioner, or the neighbours' last p read from the
+  half of the ping-pong pair that the iteration writes), and prints for
+  each the tight-solve residuals of chip_smoke.py's two right-hand sides
+  and the check of ``chip_smoke.pcg_case(861)`` that fails. Exits non-zero
+  if a broken kernel passes that phase.
 - ``match_mutants``: the same for kernel 3, ``csrc/match_scan.cu``: the
   last occurrence winning a tie, a displaced best not becoming the second,
-  no window test, no octave gate, no column validity, no row flag; each must
-  fail ``chip_smoke.match_phase()``.
+  no window test, no octave gate, no column validity, no row flag, the
+  lanes' results merged by lane order instead of column; each must fail
+  ``chip_smoke.match_phase()``.
 - ``chol_mutants``: the same for kernel 1, ``csrc/damped_cholesky.cu``: no
   trailing update of the diagonal tiles, the refinement residual without
   its lam x0 term, and the grid.sync() between the factorization and the
@@ -27,6 +29,10 @@ They print readings and check only what is stated; PERF.md cites them.
   ``torch.profiler`` (launches and device time per solve by CUDA kernel
   name, CUDA events beside them) and its per-phase times from the
   globaltimer stamps of ``tids_damped_solve_timed``.
+- ``pcg_profile``: kernel 2 on the large-N path's first systems at 861 and
+  2600 points: the grid, CUDA events and device time of the path's solve
+  and of the tight one, both split into phases by the SM clock of block 0
+  (``chip_smoke.pcg_phases``), and the split of one iteration.
 - ``chol_parity=PATH``: kernel 1 bit for bit against another version of
   its source, built into a library of its own, on chip_smoke.py's systems.
 - ``rounding``: ``solve_pair`` from the first state at 2600 and 861 points
@@ -50,14 +56,16 @@ import chip_smoke as c
 
 PKG = c.PKG
 MUTANTS = {
-    "no_neighbours": ("acc[r] += blk[r * 6 + c] * v[c];", "acc[r] += 0.0f * v[c];"),
-    "no_C_in_point_rows": ("y += Cr[g] * pg[g];", "y += 0.0f * pg[g];"),
-    "no_C_in_global_rows": ("ct += Cc[c * 8] * pv[c];", "ct += 0.0f * pv[c];"),
-    "no_Hg": ("acc += a.Hg[g * 8 + h] * pg[h];", "acc += 0.0f * pg[h];"),
-    "no_preconditioner": (
-        "if (lane == 0) inv_spd<6>(a.D + (size_t)i * 36, lam, a.Dinv + (size_t)i * 36);",
-        "for (int e = lane; e < 36; e += 32) a.Dinv[(size_t)i * 36 + e] = (e % 7 == 0) ? 1.0f : 0.0f;",
-    ),
+    "no_neighbours": ("acc[(4 * q + u) / 6] += e[u] * v[(4 * q + u) % 6];",
+                      "acc[(4 * q + u) / 6] += 0.0f * v[(4 * q + u) % 6];"),
+    "no_C_in_point_rows": ("y += Cm[la * 8 + g] * s_pg[g];", "y += 0.0f * s_pg[g];"),
+    "no_C_in_global_rows": ("ct += Cm[c * 8 + lane] * pv[c];", "ct += 0.0f * pv[c];"),
+    "no_Hg": ("const float apg = (pick(reinterpret_cast<const float(&)[8]>(t), lg) + hgp) + lam * pg;",
+              "const float apg = (pick(reinterpret_cast<const float(&)[8]>(t), lg) + 0.0f * hgp) + lam * pg;"),
+    "no_preconditioner": ("    inv_spd_rows(arow, lam, lr, lane & 24, mrow);\n",
+                          "    for (int c = 0; c < 8; ++c) mrow[c] = c == lr ? 1.0f : 0.0f;\n"),
+    # The neighbours' last p read from the half that this iteration writes.
+    "stale_ping_pong": ("if (RES) nb = load_nbr(a.z, pnext, j_res);", "if (RES) nb = load_nbr(a.z, pprev, j_res);"),
 }
 MATCH_MUTANTS = {
     "last_occurrence": ("if (D < best) {", "if (D <= best) {"),
@@ -66,6 +74,8 @@ MATCH_MUTANTS = {
     "no_octave_gate": ("oc >= o - 1 && oc <= o + 1", "true"),
     "no_column_validity": ("s_valid[t] && ", ""),
     "no_row_flag": ("    if (!ok) continue;", ""),
+    # The lanes' results merged by lane order instead of column index.
+    "merge_by_lane": ("(ob == best && oi < bi)", "(ob == best && (lane ^ off) < lane)"),
 }
 MATCH_PROBE = "import chip_smoke as c\nc.setup()\nc.match_phase()\n"
 # Kernel 1: one mutant may break several lines (pairs of old, new).
@@ -247,6 +257,37 @@ def chol_phases(H, g, lam, reps):
     return out
 
 
+def pcg_profile(points=(c.LARGE_POINTS, c.BIGN_POINTS), reps=20):
+    """Kernel 2 on the large-N path's first systems: the grid, CUDA events
+    around the wrapper and device time (profiler) of the one-iteration solve
+    at CG_ITERS / CG_RTOL and of the tight solve, and both launches split
+    into phases; the difference of the two over their iterations is the
+    split of one iteration."""
+    from triangulation_in_deformable_scenes_torch.models import deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    for n in points:
+        sys_, nbr, b, lam = c._block_problem(n)
+        runs = {}
+        for label, its, rtol in (("path", deformable.CG_ITERS, deformable.CG_RTOL),
+                                 ("tight", c.PCG_TIGHT_CAP, c.PCG_TIGHT_RTOL)):
+            solve = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+            event_ms = c.time_ms(solve)
+            launches = c.device_launches(solve, reps)
+            device_ms = sum(cnt * ms for cnt, ms in launches.values()) / reps
+            per_solve = sum(cnt for cnt, _ in launches.values()) / reps
+            phases, k = c.pcg_phases(sys_, nbr, b, lam, its, rtol, reps)
+            runs[label] = (phases, k)
+            c.log(f"[pcg_profile] N={n} dim={6 * n + 8} {label}: grid={block_pcg._load().tids_pcg_grid(n, nbr.shape[1])} "
+                  f"iterations={k} events_ms={event_ms:.4f} device_ms={device_ms:.4f} "
+                  f"launches_per_solve={per_solve:g} ({', '.join(launches)}) | phases (median ms of {reps}): "
+                  + " ".join(f"{name}={v:.5f}" for name, v in phases.items()))
+        (p1, k1), (pt, kt) = runs["path"], runs["tight"]
+        d = max(kt - k1, 1)
+        c.log(f"[pcg_profile] N={n} one iteration ({kt} - {k1} iterations): "
+              + " ".join(f"{name}_us={1e3 * (pt[name] - p1[name]) / d:.3f}" for name in (*c.PCG_PHASES, "total")))
+
+
 def profiler():
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -270,7 +311,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("no CUDA device: chip_diagnostics.py runs on an NVIDIA card only", file=sys.stderr)
         return 3
-    which = argv or ["mutants", "match_mutants", "chol_mutants", "chol_profile", "rounding", "profiler"]
+    which = argv or ["mutants", "match_mutants", "chol_mutants", "chol_profile", "pcg_profile", "rounding", "profiler"]
     c.setup()
     ok = True
     for name in which:
@@ -286,6 +327,8 @@ def main(argv):
             profiler()
         elif name == "chol_profile":
             chol_profile()
+        elif name == "pcg_profile":
+            pcg_profile()
         elif name.startswith("chol_parity="):
             chol_parity(name.split("=", 1)[1])
         else:

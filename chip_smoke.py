@@ -38,10 +38,15 @@ Phases, each of which must pass (nothing is caught):
    right-hand sides (-g, and one that loads the global block), the residual
    of the plain operator (in f64) at most 2 rtol ||b||, so a kernel without
    the neighbour, global-coupling, Hg or preconditioner terms fails; at
-   rtol 0 it runs exactly the cap. The kernel's device time from
-   ``torch.profiler`` (also of the tight solve, for the time per
-   iteration; CUDA events around one call are shown beside it), the plain
-   version's by CUDA events, and the bound.
+   rtol 0 it runs exactly the cap; REPEATS more calls are bit-identical to
+   the first, and ``torch.profiler`` sees one ``pcg_kernel`` launch per
+   solve. The kernel's device time from ``torch.profiler`` (also of the
+   tight solve, for the time per iteration; CUDA events around one call and
+   the wrapper's host time are shown beside it), its phase split from the
+   SM clock of block 0 (``tids_pcg_solve_timed``), the grid, the plain
+   version's time by CUDA events, and the bound. The same checks on the
+   861-point system repeated until it no longer fits the resident kernel
+   (the strided kernel, fewer warps than points).
 4. main path: the synthetic two-view simulation at full width (240 points,
    tangent dim 1448; ``harness/sweep_config.py``) through
    ``SimulationPipeline(device="cuda")`` with the launch counts reset just
@@ -63,17 +68,23 @@ Phases, each of which must pass (nothing is caught):
    state: the same accepted count, the cost within TIED_RTOL after
    TIED_ITERS iterations and within BIGN_COST_RTOL after 10 (see the note
    at TIED_ITERS); LM iterations per second on the card.
-9. cross-device at 861 points: the first large-N ``solve_pair`` on cuda
-   against the CPU after 1..TIED_ITERS LM iterations: the same accepted
-   count and damped-solve count, lambda and cost within TIED_RTOL.
+9. cross-device at 861 points: the first large-N ``solve_pair`` with the
+   kernel against the plain PCG on cuda and against the CPU after
+   1..TIED_ITERS LM iterations: the same accepted count and damped-solve
+   count, lambda and cost within TIED_RTOL of the plain run on cuda, and of
+   the CPU while both devices' PCG solves took the same iteration counts.
 10. kernel 3 (the matcher's windowed Hamming top-2 scan): the CUDA kernel
    against its plain version on the card, all three outputs (best
    distance, first-occurrence argmin, second-best) and the matches and
    count after the ratio test and ``_one_to_one`` bit-identical, on the
    full-width frames' own keypoints (1000 x 1000, the sequence path's
    call), on the JAX package's sweep sizes 1024^2..8192^2 (window 100,
-   octave 0, as bench.py:747-790), on a planted-tie case and on empty rows.
-   Device time from ``torch.profiler`` (CUDA events around the wrapper
+   octave 0, as bench.py:747-790), on a planted-tie case and on empty rows,
+   and on ties that the kernel's lanes must merge by column (within and
+   across lanes and column tiles); REPEATS more scans bit-identical, and
+   ``torch.profiler`` sees the MATCH_LAUNCHES_PER_SCAN launches of one scan
+   (the bit packing, the scan). Device time of both from
+   ``torch.profiler`` (CUDA events around the wrapper and its host time
    beside it), the plain version's by CUDA events (median of 30 after
    warm-up), and the bound.
 11. the sequence path: the rendered two-depth step scene at full width
@@ -108,6 +119,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -195,8 +207,11 @@ TIED_ITERS = 3
 TIED_RTOL = 1e-2
 BIGN_COST_RTOL = 0.5
 # Cross-device at 861 points: after each of 1..TIED_ITERS LM iterations the
-# same accepted and solve counts, lambda and cost within TIED_RTOL (read:
-# lambda 4.7e-5, cost 4.1e-3).
+# same accepted and solve counts, lambda and cost within TIED_RTOL of the
+# card's plain PCG (read: lambda 1.1e-4, cost 5.5e-3 at 3 iterations) and of
+# the CPU while the devices' PCG iteration counts agree (read: cost 1.0e-3
+# at 2 iterations; at 3 the CPU's third solve takes 3 PCG iterations, the
+# card's 2).
 
 # The sequence path (phase 11). JAX package, CPU, full-width step scene, 5
 # rounds x 8 evals x 25 iterations: 1000 valid keypoints in each frame, 125
@@ -221,6 +236,8 @@ SEQ_PARALLAX_TOL_DEG = 0.15
 
 # Kernel 3 at the JAX package's sweep sizes (bench.py:747-790).
 MATCH_SWEEP = (1024, 2048, 4096, 8192)
+# CUDA launches of one scan: the bit packing, then the scan.
+MATCH_LAUNCHES_PER_SCAN = 2
 MATCH_SWEEP_WINDOW = 100.0
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
@@ -359,6 +376,21 @@ def time_ms(fn, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, reps=200):
+    """Mean host time (us) of one call of ``fn``, over ``reps`` calls in a
+    row with no synchronize between them (the card runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
 
 
 def device_ms(fn, kernel, reps=20):
@@ -711,15 +743,60 @@ def pcg_bound(n, K, iters):
             stream / PEAK_BYTES_PER_S * 1e3)
 
 
+PCG_PHASES = ("prologue", "matvec", "partial_sums", "grid_sync", "serial", "rz_pass")
+
+
+def pcg_phases(sys_, nbr, b, lam, iters, rtol, reps=20):
+    """Kernel 2's one launch split into phases by the SM clock that thread 0
+    of block 0 keeps (``tids_pcg_solve_timed``), converted to ms by the
+    launch's globaltimer span: the median of each phase over ``reps`` solves,
+    their total, and the iterations."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import _nvcc
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    lib = block_pcg._load()
+    sys_ = type(sys_)(*(t.contiguous() for t in sys_))
+    n, K = nbr.shape
+    x = torch.empty_like(b)
+    ws = torch.zeros(int(lib.tids_pcg_workspace_floats(n, K)), dtype=torch.float32, device=b.device)
+    k = torch.empty(1, dtype=torch.int32, device=b.device)
+    total = torch.zeros(1, dtype=torch.int64, device=b.device)
+    stamps = torch.zeros(16, dtype=torch.int64, device=b.device)
+    lam_t = _nvcc.lam_tensor(lam, b)
+    rows = []
+    for _ in range(reps + 1):
+        err = lib.tids_pcg_solve_timed(
+            sys_.D.data_ptr(), sys_.Bt.data_ptr(), sys_.C.data_ptr(), sys_.Hg.data_ptr(), nbr.data_ptr(),
+            b.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n, K, int(iters), float(rtol) * float(rtol),
+            ws.data_ptr(), k.data_ptr(), total.data_ptr(), stamps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"tids_pcg_solve_timed failed: cudaError_t {err}")
+        st = stamps.cpu().tolist()
+        ns_per_cycle = (st[9] - st[8]) / max(st[11] - st[10], 1)
+        rows.append([v * ns_per_cycle / 1e6 for v in st[: len(PCG_PHASES)]] + [(st[9] - st[8]) / 1e6])
+    rows = rows[1:]
+    out = {name: statistics.median(r[i] for r in rows) for i, name in enumerate(PCG_PHASES)}
+    out["total"] = statistics.median(r[-1] for r in rows)
+    return out, int(k)
+
+
 def pcg_case(num_points):
     """Kernel 2 against the plain version on the large-N path's first
     system at ``num_points``; returns its row."""
+    return pcg_check(f"{num_points} points", *_block_problem(num_points))
+
+
+def pcg_check(label, sys_, nbr, b, lam):
+    """Kernel 2 against the plain version on one system: iteration counts,
+    error against the plain version and against f64, tight-solve residuals,
+    the cap at rtol 0, REPEATS calls bit-identical, one cooperative launch
+    per solve; times, phase split and bound. Returns the kernel's row."""
     import torch
 
     from triangulation_in_deformable_scenes_torch.models import block_system, deformable
     from triangulation_in_deformable_scenes_torch.ops import block_pcg
 
-    sys_, nbr, b, lam = _block_problem(num_points)
     n, K = nbr.shape
     dim = 6 * n + 8
     its, rtol = deformable.CG_ITERS, deformable.CG_RTOL
@@ -729,55 +806,99 @@ def pcg_case(num_points):
     k = int(k)
     err = float((x - xp).abs().max())
     rel = err / float(xp.abs().max())
-    check(bool(torch.isfinite(x).all()), f"PCG kernel output not finite (dim {dim})")
-    check(k == kp, f"PCG kernel took {k} iterations, the plain version {kp} (dim {dim})")
-    check(rel < PCG_REL_TOL, f"PCG kernel vs plain relative error {rel:.3e} (dim {dim})")
+    check(bool(torch.isfinite(x).all()), f"PCG kernel output not finite ({label})")
+    check(k == kp, f"PCG kernel took {k} iterations, the plain version {kp} ({label})")
+    check(rel < PCG_REL_TOL, f"PCG kernel vs plain relative error {rel:.3e} ({label})")
     sys64 = block_system.BlockSystem(*(a.double() for a in sys_))
     x64, _ = block_pcg.pcg_block_system_plain(sys64, nbr, b.double(), lam.double(), k, 0.0)
     scale = float(x64.abs().max())
     err_k = float((x.double() - x64).abs().max()) / scale
     err_p = float((xp.double() - x64).abs().max()) / scale
     check(err_k <= PCG_ACCURACY_FACTOR * err_p,
-          f"PCG kernel error vs f64 {err_k:.3e} > {PCG_ACCURACY_FACTOR} x plain {err_p:.3e} (dim {dim})")
+          f"PCG kernel error vs f64 {err_k:.3e} > {PCG_ACCURACY_FACTOR} x plain {err_p:.3e} ({label})")
+    solve = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+    for _ in range(REPEATS):
+        xr, kr = solve()
+        check(torch.equal(xr, x) and int(kr) == k, f"a repeated PCG call is not bit-identical ({label})")
 
     # Tight solves: the true residual of the plain operator, in f64, for two
     # right-hand sides: -g, and (H + lam I) x* with x* on the 8 global
     # entries only, (diag Hg + lam)^-1/2, which loads the point-to-global
-    # coupling as -g does not.
+    # coupling as -g does not; the kernel's iterations against the plain
+    # loop's.
     xstar = torch.zeros(dim, dtype=torch.float64, device=b.device)
     xstar[6 * n :] = torch.rsqrt(torch.diagonal(sys64.Hg) + lam.double())
     b_global = block_system.block_matvec(sys64, nbr, xstar, lam.double()).float()
     tight = {}
-    for label, rhs in (("-g", b), ("global", b_global)):
+    for name, rhs in (("-g", b), ("global", b_global)):
         xt, kt = block_pcg.pcg_block_system_cuda(sys_, nbr, rhs, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL)
+        _, kpt = block_pcg.pcg_block_system_plain(sys_, nbr, rhs, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL)
         res = block_system.block_matvec(sys64, nbr, xt.double(), lam.double()) - rhs.double()
-        tight[label] = (int(kt), float(torch.linalg.norm(res) / torch.linalg.norm(rhs.double())))
-        check(tight[label][1] <= 2.0 * PCG_TIGHT_RTOL,
-              f"PCG kernel residual {tight[label][1]:.3e} > {2 * PCG_TIGHT_RTOL:.0e} at rtol "
-              f"{PCG_TIGHT_RTOL:.0e}, right-hand side {label} (dim {dim})")
+        tight[name] = (int(kt), kpt, float(torch.linalg.norm(res) / torch.linalg.norm(rhs.double())))
+        check(tight[name][2] <= 2.0 * PCG_TIGHT_RTOL,
+              f"PCG kernel residual {tight[name][2]:.3e} > {2 * PCG_TIGHT_RTOL:.0e} at rtol "
+              f"{PCG_TIGHT_RTOL:.0e}, right-hand side {name} ({label})")
     kt = tight["-g"][0]
     _, kc = block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, PCG_CAP_ITERS, 0.0)
-    check(int(kc) == PCG_CAP_ITERS, f"PCG kernel ran {int(kc)} iterations at rtol 0, cap {PCG_CAP_ITERS}")
+    check(int(kc) == PCG_CAP_ITERS, f"PCG kernel ran {int(kc)} iterations at rtol 0, cap {PCG_CAP_ITERS} ({label})")
 
-    solve = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+    launches = device_launches(solve, REPEATS)
+    seen = sum(count for count, _ in launches.values())
+    check(seen == REPEATS and all("pcg_kernel" in name for name in launches),
+          f"{REPEATS} PCG solves launched {launches} ({label}), not one pcg_kernel each")
+    ms = sum(count * per for count, per in launches.values()) / REPEATS
     event_ms = time_ms(solve)
-    ms = device_ms(solve, "pcg_kernel")
+    wrapper_us = host_us(solve)
     plain_ms = time_ms(lambda: block_pcg.pcg_block_system_plain(sys_, nbr, b, lam, its, rtol), reps=10)
     tight_ms = device_ms(
         lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL),
         "pcg_kernel", reps=5)
+    path_split, _ = pcg_phases(sys_, nbr, b, lam, its, rtol)
+    tight_split, _ = pcg_phases(sys_, nbr, b, lam, PCG_TIGHT_CAP, PCG_TIGHT_RTOL, reps=5)
+    per_it = {name: 1e3 * (tight_split[name] - path_split[name]) / max(kt - k, 1) for name in tight_split}
     bound_ms, bound_by, stream_ms = pcg_bound(n, K, k)
     tight_bound_ms, _, tight_stream_ms = pcg_bound(n, K, kt)
-    log(f"[pcg] dim={dim} N={n} K={K} grid={block_pcg._load().tids_pcg_grid(n)} blocks "
-        f"iterations={k} (plain {kp}) max_abs_err={err:.3e} rel_err={rel:.3e} "
-        f"vs_f64: kernel={err_k:.3e} plain={err_p:.3e} tight (iterations, residual): {tight} "
-        f"cap_at_rtol0={int(kc)} "
-        f"ms={ms:.4f} (device; {event_ms:.4f} by events) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
-        f"stream_bound_ms={stream_ms:.5f} | tight_ms={tight_ms:.4f} tight_bound_ms={tight_bound_ms:.5f} "
-        f"tight_stream_bound_ms={tight_stream_ms:.5f} "
+    lib = block_pcg._load()
+    log(f"[pcg] {label} dim={dim} N={n} K={K} grid={lib.tids_pcg_grid(n, K)} blocks "
+        f"resident={lib.tids_pcg_resident(n, K)} iterations={k} (plain {kp}) max_abs_err={err:.3e} "
+        f"rel_err={rel:.3e} vs_f64: kernel={err_k:.3e} plain={err_p:.3e} "
+        f"tight (kernel iterations, plain iterations, residual): {tight} cap_at_rtol0={int(kc)} "
+        f"repeats={REPEATS} bit-identical launches_per_solve={seen / REPEATS:g} "
+        f"ms={ms:.4f} (device; {event_ms:.4f} by events around the wrapper, whose host time is "
+        f"{wrapper_us:.1f} us) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) stream_bound_ms={stream_ms:.5f} | tight_ms={tight_ms:.4f} "
+        f"tight_bound_ms={tight_bound_ms:.5f} tight_stream_bound_ms={tight_stream_ms:.5f} "
         f"us_per_iteration={1e3 * (tight_ms - ms) / max(kt - k, 1):.2f}")
-    return dict(dim=dim, iterations=k, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    log(f"[pcg] {label} split of the path's solve (median ms of 20): "
+        + " ".join(f"{name}={v:.5f}" for name, v in path_split.items())
+        + " | per iteration (us): " + " ".join(f"{name}={v:.3f}" for name, v in per_it.items()))
+    return dict(dim=dim, iterations=k, max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def pcg_stride_case():
+    """Kernel 2 beyond the resident limit (the strided kernel: fewer warps
+    than points): the 861-point system repeated M times as independent
+    copies (global block scaled by M, so the whole stays positive definite),
+    with the smallest M that the resident kernel cannot hold."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.models import block_system
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    sys_, nbr, b, lam = _block_problem(LARGE_POINTS)
+    n, K = nbr.shape
+    lib = block_pcg._load()
+    m = 2
+    while lib.tids_pcg_resident(n * m, K) != 0:
+        m += 1
+    tile = lambda t: t.repeat(m, *([1] * (t.dim() - 1)))
+    offs = (torch.arange(m, device=nbr.device) * n).repeat_interleave(n)[:, None]
+    nbr_m = torch.where(tile(nbr) < 0, tile(nbr), tile(nbr) + offs)
+    big = block_system.BlockSystem(tile(sys_.D), tile(sys_.Bt), tile(sys_.C), sys_.Hg * m, tile(sys_.g_p),
+                                   sys_.g_g * m)
+    check(lib.tids_pcg_resident(n * m, K) == 0 and lib.tids_pcg_grid(n * m, K) * 8 < n * m,
+          "the repeated system is not on the strided kernel")
+    return pcg_check(f"{m} x {n} points (strided)", big, nbr_m, -block_system.flat_gradient(big), lam)
 
 
 def large_main_phase():
@@ -876,27 +997,64 @@ def bign_phase():
 
 
 def cross_large_phase():
-    """The first large-N solve_pair on cuda against the CPU: after each of
-    1..TIED_ITERS LM iterations the same accepted and damped-solve counts,
-    lambda and cost within TIED_RTOL."""
+    """The first large-N solve_pair with the kernel on cuda against the plain
+    PCG on cuda and against the CPU: after each of 1..TIED_ITERS LM
+    iterations the same accepted and damped-solve counts, and lambda and
+    cost within TIED_RTOL of the card's plain run and of the CPU run. The
+    CPU comparison holds while both devices' PCG solves took the same
+    iteration counts: a solve whose early exit falls at r.r ~ tol2 can stop
+    one iteration apart on the two devices (the card's f32 sums, the
+    kernel's and the plain version's alike, against the CPU's), and the LM
+    steps then differ by more than rounding (PERF.md, PR 6)."""
     from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
     from triangulation_in_deformable_scenes_torch.models import deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
 
     data, state, hyper = _first_problem(LARGE_POINTS)
     spec = deformable.MODELS[sc.sweep_config().opt_model]
     cpu = (_on_cpu(data), _on_cpu(hyper), _on_cpu(state))
+    dispatch = block_pcg.pcg_block_system
+    counts = []
+
+    def kernel(*args):
+        x, k = block_pcg.pcg_block_system_cuda(*args)
+        counts.append(int(k))
+        return x
+
+    def plain(*args):
+        x, k = block_pcg.pcg_block_system_plain(*args)
+        counts.append(k)
+        return x
+
+    def run(solver, args, its):
+        counts.clear()
+        block_pcg.pcg_block_system = solver
+        try:
+            r = deformable.solve_pair("KB8", *args, its, spec)
+        finally:
+            block_pcg.pcg_block_system = dispatch
+        return r, list(counts)
+
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))
     for its in range(1, TIED_ITERS + 1):
-        rg = deformable.solve_pair("KB8", data, hyper, state, its, spec)
-        rc = deformable.solve_pair("KB8", *cpu, its, spec)
-        d_lam = abs(float(rg.lam) - float(rc.lam)) / abs(float(rc.lam))
-        d_cost = abs(float(rg.cost) - float(rc.cost)) / abs(float(rc.cost))
-        log(f"[cross-large] iterations={its} cuda: accepted={rg.n_accepted} solves={rg.n_solves} "
-            f"lam={float(rg.lam)!r} cost={float(rg.cost)!r} | cpu: accepted={rc.n_accepted} "
-            f"solves={rc.n_solves} lam={float(rc.lam)!r} cost={float(rc.cost)!r} | "
-            f"lam_rel={d_lam:.3e} cost_rel={d_cost:.3e}")
-        check((rg.n_accepted, rg.n_solves) == (rc.n_accepted, rc.n_solves),
-              f"schedules differ cuda vs cpu after {its} iterations")
-        check(d_lam < TIED_RTOL and d_cost < TIED_RTOL,
+        (rg, cg), (rp, cp), (rc, cc) = (run(kernel, (data, hyper, state), its), run(plain, (data, hyper, state), its),
+                                        run(plain, cpu, its))
+        log(f"[cross-large] iterations={its} cuda: accepted={rg.n_accepted} solves={rg.n_solves} pcg={cg} "
+            f"lam={float(rg.lam)!r} cost={float(rg.cost)!r} | cuda plain: pcg={cp} lam={float(rp.lam)!r} "
+            f"cost={float(rp.cost)!r} | cpu: accepted={rc.n_accepted} solves={rc.n_solves} pcg={cc} "
+            f"lam={float(rc.lam)!r} cost={float(rc.cost)!r} | vs cuda plain: lam_rel={rel(rg.lam, rp.lam):.3e} "
+            f"cost_rel={rel(rg.cost, rp.cost):.3e} | vs cpu: lam_rel={rel(rg.lam, rc.lam):.3e} "
+            f"cost_rel={rel(rg.cost, rc.cost):.3e}")
+        for name, r in (("cuda plain", rp), ("cpu", rc)):
+            check((rg.n_accepted, rg.n_solves) == (r.n_accepted, r.n_solves),
+                  f"schedules differ kernel vs {name} after {its} iterations")
+        check(rel(rg.lam, rp.lam) < TIED_RTOL and rel(rg.cost, rp.cost) < TIED_RTOL,
+              f"lambda or cost differ kernel vs cuda plain after {its} iterations")
+        if cg != cc:
+            log(f"[cross-large] the PCG iteration counts part from the CPU's ({cg} vs {cc}): "
+                f"cuda and cpu are no longer tied")
+            break
+        check(rel(rg.lam, rc.lam) < TIED_RTOL and rel(rg.cost, rc.cost) < TIED_RTOL,
               f"lambda or cost differ cuda vs cpu after {its} iterations")
 
 
@@ -978,6 +1136,45 @@ def _tie_problem():
     return kp1, d1, o1, v1, kp2, d2, o2, v2, sf
 
 
+def _lane_tie_problem():
+    """Ties that the kernel's lanes must merge by column (lane l scans the
+    columns j = l mod 32): rows whose best distance (0) is attained at
+    columns (10, 11), (40, 72) in one lane, (8, 33) where the higher lane
+    holds the lower column, (63, 64) and (255, 256) across lanes and tiles,
+    (5, 261) in one lane across tiles, and (3, 34, 65) three ways; rows
+    whose second best ties the best in another lane; rows far from every
+    column and invalid rows; 611 columns, a multiple of neither 32 nor the
+    256-column tile."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    n1, n2 = 64, 611
+    kp1 = rng.uniform(0, 600, size=(n1, 2)).astype(np.float32)
+    kp2 = rng.uniform(0, 600, size=(n2, 2)).astype(np.float32)
+    d1 = rng.integers(0, 2, size=(n1, 256)).astype(np.uint8)
+    d2 = rng.integers(0, 2, size=(n2, 256)).astype(np.uint8)
+    ties = [(10, 11), (40, 72), (8, 33), (63, 64), (255, 256), (5, 261), (3, 34, 65), (100, 395), (600, 610)]
+    for i, cols in enumerate(ties):
+        for k, j in enumerate(cols):
+            d2[j] = d1[i]
+            kp2[j] = kp1[i] + np.float32(0.5 * (k + 1))
+    for i, (j0, j1, j2) in enumerate([(120, 150, 151), (200, 231, 230)], start=len(ties)):
+        d2[j0] = d1[i]
+        kp2[j0] = kp1[i] + 0.5
+        for j in (j1, j2):
+            d2[j] = d1[i]
+            d2[j, :3] ^= 1
+            kp2[j] = kp1[i] - 0.5
+    kp1[40:50] = 5000.0
+    v1 = np.ones(n1, bool)
+    v1[50:54] = False
+    o1 = np.zeros(n1, np.int32)
+    o2 = np.zeros(n2, np.int32)
+    v2 = np.ones(n2, bool)
+    sf = (1.2 ** np.arange(4)).astype(np.float32)
+    return kp1, d1, o1, v1, kp2, d2, o2, v2, sf
+
+
 def match_case(label, inputs, window, max_octave, th, ratio=0.9, timed=True):
     """Kernel 3 against its plain version on one input: the three outputs and
     the matches after the ratio test and ``_one_to_one`` bit-identical, also
@@ -1016,13 +1213,26 @@ def match_case(label, inputs, window, max_octave, th, ratio=0.9, timed=True):
                library_ms=None)
     msg = (f"[match] {label} {n1}x{n2} bit-identical (best_d, best, second_d, matches) "
            f"n_matches={int(nw)} active_rows={n_rows} allowed_pairs={n_allowed} ties={ties} empty_rows={empty}")
+    fn = lambda: ms.match_scan_cuda(*args)
+    for _ in range(REPEATS):
+        check(all(torch.equal(g, w) for g, w in zip(fn(), got)), f"a repeated scan is not bit-identical ({label})")
     if timed:
-        fn = lambda: ms.match_scan_cuda(*args)
+        launches = device_launches(fn, REPEATS)
+        per_scan = sum(count for count, _ in launches.values()) / REPEATS
+        check(per_scan == MATCH_LAUNCHES_PER_SCAN and all("match_scan" in name for name in launches),
+              f"{REPEATS} scans launched {launches} ({label}), not {MATCH_LAUNCHES_PER_SCAN} match_scan kernels each")
+        split = {re.search(r"match_scan\w*", name).group(0): count * per / REPEATS
+                 for name, (count, per) in launches.items()}
+        row["ms"] = sum(split.values())
         row["event_ms"] = time_ms(fn)
-        row["ms"] = device_ms(fn, "match_scan_kernel")
+        row["host_us"] = host_us(fn)
         row["plain_ms"] = time_ms(lambda: ms.match_scan_plain(*args))
         row["bound_ms"], row["bound_by"] = match_bound(n1, n2, n_rows, n_allowed)
-        msg += (f" ms={row['ms']:.4f} (device; {row['event_ms']:.4f} by events around the wrapper) "
+        msg += (f" grid={-(-n1 // 8)} blocks launches_per_scan={per_scan:g} repeats={REPEATS} bit-identical "
+                f"ms={row['ms']:.4f} (device: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+                + f"; {row['event_ms']:.4f} by events around the wrapper, whose host time is "
+                f"{row['host_us']:.1f} us) "
                 f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} ({row['bound_by']})")
     log(msg)
     return row
@@ -1043,6 +1253,7 @@ def match_phase():
     for n in MATCH_SWEEP:
         match_case("sweep", _match_inputs(*_sweep_problem(n)), MATCH_SWEEP_WINDOW, 0, 50.0)
     match_case("ties+empty", _match_inputs(*_tie_problem()), 5.0, 0, 60.0, timed=False)
+    match_case("lane ties", _match_inputs(*_lane_tie_problem()), 5.0, 0, 60.0, timed=False)
     return path_row
 
 
@@ -1185,6 +1396,7 @@ def main():
     r = kernel_phase()
     refinement_phase()
     pcg_rows = {n: pcg_case(n) for n in (LARGE_POINTS, BIGN_POINTS)}
+    pcg_stride_case()
     launches = main_path_phase()
     split_phase(240)
     cross_device_phase()

@@ -122,10 +122,10 @@ struct Args {
 };
 
 // Phases that thread 0 of block 0 times in the timed entry: SM clock cycles
-// spent in each, summed over the solve (stamps[0..6]); stamps[8..11] hold
+// spent in each, summed over the solve (stamps[0..5]); stamps[8..11] hold
 // the globaltimer (ns) and clock64 at its start and end, so the caller turns
-// cycles into ns. PH_P (PR 2's p pass) stays 0.
-enum { PH_PROLOGUE, PH_MATVEC, PH_PARTIALS, PH_SYNC, PH_SERIAL, PH_RZ, PH_P, PH_COUNT };
+// cycles into ns.
+enum { PH_PROLOGUE, PH_MATVEC, PH_PARTIALS, PH_SYNC, PH_SERIAL, PH_RZ, PH_COUNT };
 
 __device__ __forceinline__ unsigned long long now_ns() {
   unsigned long long t;

@@ -31,9 +31,9 @@ Hazards handled here (ROADMAP Queue C):
   downscales, with weight matrices that XLA rounds in its own way under
   ``jit``. ``resize_weights`` builds the same matrices (within a few ulp;
   equal at 1024 -> 853 and 1024 -> 711) and ``resize_linear`` applies them
-  as a band on the image's device. JAX contracts them by matmul, so levels
-  agree to ~1e-4 grey levels, not bit for bit, and keypoints on levels >= 1
-  can still flip at a threshold or a tie.
+  by two matrix products on the image's device, as JAX does; the products
+  sum in other orders, so levels agree to ~1e-4 grey levels, not bit for
+  bit, and keypoints on levels >= 1 can still flip at a threshold or a tie.
 - **Patches near edges.** ``dynamic_slice`` clamps its start in silence and
   ``DESC_R`` = 21 > ``EDGE`` = 19; ``_extract_patches`` instead checks that
   every valid centre lies at least ``DESC_R`` inside the padded level (the
@@ -128,48 +128,27 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
-_BANDS = {}
+_WEIGHTS = {}
 
 
-def _band(n_in: int, n_out: int, device):
-    """``resize_weights`` as a band: (rows [T, n_out] int64, weights [T,
-    n_out] f32) with output j = sum over t of weights[t, j] * input[rows[t,
-    j]], t ascending; T is the widest column's run of nonzero rows
-    (at most ceil(2 kernel_scale) + 1). Cached by sizes and device."""
+def _weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``resize_weights`` on ``device``, cached by sizes and device."""
     key = (n_in, n_out, str(device))
-    if key not in _BANDS:
-        W = resize_weights(n_in, n_out)
-        nz = W != 0
-        lo = np.where(nz.any(0), nz.argmax(0), 0)
-        hi = np.where(nz.any(0), n_in - 1 - nz[::-1].argmax(0), 0)
-        t = np.arange(int((hi - lo).max()) + 1)[:, None]
-        rows = np.minimum(lo[None, :] + t, n_in - 1)
-        wt = np.where(t <= (hi - lo)[None, :], W[rows, np.arange(n_out)[None, :]], 0).astype(np.float32)
-        _BANDS[key] = (torch.as_tensor(rows, device=device), torch.as_tensor(wt, device=device))
-    return _BANDS[key]
-
-
-def _resample_rows(im, n_out: int):
-    """[n_in, W] -> [n_out, W] along the first axis, by the band of
-    ``resize_weights`` (products summed in row order, each rounded)."""
-    rows, wt = _band(im.shape[0], n_out, im.device)
-    out = im[rows[0]] * wt[0][:, None]
-    for t in range(1, rows.shape[0]):
-        out = out + im[rows[t]] * wt[t][:, None]
-    return out
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = torch.as_tensor(resize_weights(n_in, n_out), device=device)
+    return _WEIGHTS[key]
 
 
 def resize_linear(im, shape):
     """Linear resampling of a [H, W] f32 image to ``shape``, antialiased when
     it downscales, as ``jax.image.resize(..., "linear")``: JAX's own weights
-    (``resize_weights``), rows first, then columns."""
+    (``resize_weights``) applied by two f32 matrix products on the image's
+    device, rows first, as JAX contracts them outside any kernel."""
     shape = (int(shape[0]), int(shape[1]))
-    if tuple(im.shape) == shape:
-        return im
     if im.shape[0] != shape[0]:
-        im = _resample_rows(im, shape[0])
+        im = _weights(im.shape[0], shape[0], im.device).T @ im
     if im.shape[1] != shape[1]:
-        im = _resample_rows(im.T, shape[1]).T.contiguous()
+        im = im @ _weights(im.shape[1], shape[1], im.device)
     return im
 
 
