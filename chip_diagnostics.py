@@ -4,6 +4,7 @@ They print readings and check only what is stated; PERF.md cites them.
 
     python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [pcg_profile] [rounding] [profiler]
     python3 chip_diagnostics.py chol_parity=OTHER_damped_cholesky.cu
+    python3 chip_diagnostics.py pcg_variants extract_parent=build/parent
 
 (no argument runs the first seven)
 
@@ -33,6 +34,13 @@ They print readings and check only what is stated; PERF.md cites them.
   2600 points: the grid, CUDA events and device time of the path's solve
   and of the tight one, both split into phases by the SM clock of block 0
   (``chip_smoke.pcg_phases``), and the split of one iteration.
+- ``pcg_variants``: kernel 2 as kept against the designs of PCG_VARIANTS
+  (the 3-blocks-an-SM kernel where 2 suffice, approximate quotients in the
+  inverses), each built in a temporary copy: iterations, device time, µs
+  per iteration, prologue.
+- ``extract_parent=PATH``: the warm full-width extraction in another
+  checkout (the parent commit unpacked with ``git archive``) and in this
+  tree, alternated, one process each.
 - ``chol_parity=PATH``: kernel 1 bit for bit against another version of
   its source, built into a library of its own, on chip_smoke.py's systems.
 - ``rounding``: ``solve_pair`` from the first state at 2600 and 861 points
@@ -78,6 +86,63 @@ MATCH_MUTANTS = {
     "merge_by_lane": ("(ob == best && oi < bi)", "(ob == best && (lane ^ off) < lane)"),
 }
 MATCH_PROBE = "import chip_smoke as c\nc.setup()\nc.match_phase()\n"
+# Kernel 2 designs measured against the kept one (``variants``).
+PCG_VARIANTS = {
+    # The 3-blocks-an-SM resident kernel (80 registers, spills) also where 2
+    # blocks an SM hold a warp per point.
+    "three_blocks_per_sm": ("  if (K <= 32 && want <= cap_few) return", "  if (false && want <= cap_few) return"),
+    # Approximate quotients and square roots in the row-parallel inverses.
+    "approximate_inverses": (
+        ("    L[j] = l < j ? 0.0f : (l == j ? Ljj : acc / Ljj);",
+         "    L[j] = l < j ? 0.0f : (l == j ? Ljj : __fdividef(acc, Ljj));"),
+        ("    const float Ljj = __shfl_sync(FULL, sqrtf(fmaxf(acc, TINY)), base + j);",
+         "    const float Ljj = __shfl_sync(FULL, fmaxf(acc, TINY) * rsqrtf(fmaxf(acc, TINY)), base + j);"),
+        ("  const float inv_ll = 1.0f / pick(L, l);", "  const float inv_ll = __fdividef(1.0f, pick(L, l));"),
+    ),
+}
+VARIANT_PROBE = r"""
+import chip_smoke as c
+from triangulation_in_deformable_scenes_torch.models import deformable
+from triangulation_in_deformable_scenes_torch.ops import block_pcg
+c.setup()
+for n in (c.LARGE_POINTS, c.BIGN_POINTS):
+    sys_, nbr, b, lam = c._block_problem(n)
+    its, rtol = deformable.CG_ITERS, deformable.CG_RTOL
+    solve = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, its, rtol)
+    tight = lambda: block_pcg.pcg_block_system_cuda(sys_, nbr, b, lam, c.PCG_TIGHT_CAP, c.PCG_TIGHT_RTOL)
+    k, kp, kt = int(solve()[1]), block_pcg.pcg_block_system_plain(sys_, nbr, b, lam, its, rtol)[1], int(tight()[1])
+    ms, tms = c.device_ms(solve, "pcg_kernel"), c.device_ms(tight, "pcg_kernel", reps=5)
+    split, _ = c.pcg_phases(sys_, nbr, b, lam, its, rtol)
+    lib = block_pcg._load()
+    print(f"[variant] N={n} grid={lib.tids_pcg_grid(n, nbr.shape[1])} resident={lib.tids_pcg_resident(n, nbr.shape[1])} "
+          f"iterations={k} (plain {kp}) ms={ms:.4f} tight_iterations={kt} us_per_iteration={1e3 * (tms - ms) / (kt - k):.2f} "
+          f"prologue_us={1e3 * split['prologue']:.2f}", flush=True)
+"""
+# The warm extraction of one full-width frame, timed in the tree it runs from.
+EXTRACT_PROBE = r"""
+import statistics, sys, torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ".")
+from triangulation_in_deformable_scenes_torch.harness import step_scene as ss
+from triangulation_in_deformable_scenes_torch.pipeline import sequence as seq
+pipe = seq.SequencePipeline(ss.scene_config(ss.FULL), device="cuda")
+gray = seq.to_grayscale(ss.step_frames(ss.FULL)[0][0])
+for _ in range(3):
+    pipe.extract(gray)
+times = []
+for _ in range(20):
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    pipe.extract(gray)
+    b.record()
+    b.synchronize()
+    times.append(a.elapsed_time(b))
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pipe.extract(gray)
+    torch.cuda.synchronize()
+launches = sum(ev.count for ev in prof.key_averages() if ev.self_device_time_total > 0)
+print(f"[extract] median_ms={statistics.median(times):.3f} min_ms={min(times):.3f} launches={launches}", flush=True)
+"""
 # Kernel 1: one mutant may break several lines (pairs of old, new).
 CHOL_MUTANTS = {
     "no_diagonal_tile_update": (
@@ -111,7 +176,8 @@ c.pcg_case(861)
 
 def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
     """Each broken kernel must fail its probe (kernel 2: chip_smoke.pcg_case(861));
-    ``table`` maps a name to one (old, new) pair or to a tuple of them."""
+    ``table`` maps a name to one (old, new) pair or to a tuple of them. Also
+    runs the kernel variants of ``variants``, whose probe prints readings."""
     all_failed = True
     with tempfile.TemporaryDirectory() as tmp:
         for name, spec in table.items():
@@ -122,17 +188,35 @@ def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
             cu = os.path.join(dst, PKG, "csrc", source)
             with open(cu) as f:
                 src = f.read()
-            for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            for old, new in (spec if not spec or isinstance(spec[0], tuple) else (spec,)):
                 c.check(src.count(old) == 1, f"mutant {name}: the line to break is not in {source} once")
                 src = src.replace(old, new)
             with open(cu, "w") as f:
                 f.write(src)
             out = subprocess.run([sys.executable, "-c", probe], cwd=dst, capture_output=True, text=True)
             lines = [ln for ln in (out.stdout + out.stderr).splitlines()
-                     if ln.startswith(("[mutant]", "FAILED"))]
+                     if ln.startswith(("[mutant]", "[variant]", "FAILED"))]
             c.log(f"[mutants] {name}: exit {out.returncode}; " + " | ".join(lines))
             all_failed &= out.returncode != 0
     return all_failed
+
+
+def variants() -> None:
+    """Kernel 2 as kept beside the designs of PCG_VARIANTS, each built in a
+    temporary copy: grid, iterations, device ms, µs per iteration and the
+    prologue at 861 and 2600 points."""
+    mutants("block_pcg.cu", {"kept": (), **PCG_VARIANTS}, VARIANT_PROBE)
+
+
+def extract_parent(path) -> None:
+    """The warm extraction of a full-width frame (CUDA events, median of 20,
+    and its CUDA launches) in another checkout ``path`` (e.g. ``git archive``
+    of the parent commit unpacked into ``build/parent``) and in this tree,
+    alternated: other, this, this, other; one process each."""
+    for label, cwd in (("other", path), ("this", c.REPO), ("this", c.REPO), ("other", path)):
+        out = subprocess.run([sys.executable, "-c", EXTRACT_PROBE], cwd=cwd, capture_output=True, text=True)
+        lines = [ln for ln in (out.stdout + out.stderr).splitlines() if ln.startswith(("[extract]", "Traceback"))]
+        c.log(f"[extract_parent] {label} tree ({cwd}): " + " | ".join(lines))
 
 
 def rounding():
@@ -329,6 +413,10 @@ def main(argv):
             chol_profile()
         elif name == "pcg_profile":
             pcg_profile()
+        elif name == "pcg_variants":
+            variants()
+        elif name.startswith("extract_parent="):
+            extract_parent(name.split("=", 1)[1])
         elif name.startswith("chol_parity="):
             chol_parity(name.split("=", 1)[1])
         else:
