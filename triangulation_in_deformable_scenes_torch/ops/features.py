@@ -32,7 +32,7 @@ Hazards handled here (ROADMAP Queue C):
   ``jit``. ``resize_weights`` builds the same matrices (within a few ulp;
   equal at 1024 -> 853 and 1024 -> 711) and ``resize_linear`` applies them
   by two matrix products on the image's device, as JAX does; the products
-  sum in other orders, so levels agree to ~1e-4 grey levels, not bit for
+  sum in other orders, so levels agree within 2e-4 grey levels, not bit for
   bit, and keypoints on levels >= 1 can still flip at a threshold or a tie.
 - **Patches near edges.** ``dynamic_slice`` clamps its start in silence and
   ``DESC_R`` = 21 > ``EDGE`` = 19; ``_extract_patches`` instead checks that
