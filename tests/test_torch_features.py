@@ -14,19 +14,26 @@ Tolerances:
   matmul, the port by a band in row order, so the sums round in other
   orders; measured 1.07e-4 on this frame, 6.6e-4 before the port took
   JAX's weights);
-- angles 1e-3 deg (the moment sums on resampled levels round in other orders;
-  ~1e-4 measured);
-- the patch blur 1e-4 (a seven-slice sum against XLA's convolution);
-- descriptors from identical patches and angles: at most 0.5 % of bits
-  differ (cos/sin of the angle may differ by an ulp and move a tap at .5,
-  the tolerance tests/test_features.py:151-182 allows between two JAX
-  formulations);
+- angles 1e-3 deg on patches of resampled levels (a few ulp: the port sums
+  the moments in the order XLA's jitted matrix-vector product does, but
+  torch's and XLA's atan2 may differ in the last ulp), at most 2 ulp on the
+  extraction of JAX's own levels;
+- the patch blur: bit for bit (the port sums the seven taps in the order
+  XLA's CPU convolution does: ((p0 + p1) + (p2 + p3)) + (p4 + p5), then p6);
+- descriptors from identical blurred patches and angles: bit for bit; from
+  the full-image formulation at most 0.5 % of bits differ (cos/sin of the
+  angle may differ by an ulp and move a tap at .5, the tolerance
+  tests/test_features.py:151-182 allows between two JAX formulations);
+- ``extract_level`` on JAX's jitted pyramid levels of both full-width step
+  frames: keypoints, scores, octaves and masks equal, angles within 2 ulp,
+  descriptors bit for bit;
 - ``extract`` on the 320 x 320 step scene: level-0 keypoints identical, 99 %
   of all keypoints identical, 99.5 % of descriptor bits equal on the shared
   keypoints (resampling differences flip ties of taps in flat regions on the
   upper levels: ~0.3 % measured).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +41,7 @@ import torch
 
 from triangulation_in_deformable_scenes_torch.harness import step_scene
 from triangulation_in_deformable_scenes_torch.ops import features as TF
+from triangulation_in_deformable_scenes_torch.pipeline.sequence import to_grayscale
 from triangulation_in_deformable_scenes_tpu.ops import features as JF
 
 torch.set_num_threads(1)
@@ -143,6 +151,10 @@ def test_topk_level_keeps_jax_tie_order():
     assert not np.array_equal(flat_topk, jxy[:, 1] * score.shape[1] + jxy[:, 0])
 
 
+def _ulps(a, b):
+    return np.abs(a.astype(np.float64) - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+
+
 def _jax_patches(level=1):
     """JAX's own [N, 43, 43] patches, angles and validity on one level of the
     step scene (a resampled level, so the values are not integers)."""
@@ -178,13 +190,77 @@ def test_blur_patches_close():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("kind", ["step_scene", "blocky", "uniform"])
+def test_blur_patches_matches_jax_bitwise(kind):
+    """The port's seven-tap sums against ``jax.jit(blur_patches)``: equal bit
+    for bit on the step scene's patches (a resampled level), on piecewise-flat
+    random patches (where equal taps make the order show) and on uniform
+    ones."""
+    rng = np.random.default_rng(3)
+    if kind == "step_scene":
+        P = _jax_patches()[0]
+    elif kind == "blocky":
+        P = rng.integers(0, 256, size=(200, 11, 11)).astype(np.float32)
+        P = np.repeat(np.repeat(P, 4, 1), 4, 2)[:, :43, :43].copy()
+    else:
+        P = rng.uniform(0, 255, size=(200, 43, 43)).astype(np.float32)
+    want = np.asarray(jax.jit(JF.blur_patches)(jnp.asarray(P)))
+    np.testing.assert_array_equal(TF.blur_patches(t(P)).numpy(), want)
+
+
+@pytest.mark.cuda
+def test_blur_and_moments_on_card_equal_the_cpu():
+    """The blur and the angle moments are plain torch ops in XLA's order, so
+    the card gives the CPU's values bit for bit (no FMA contraction: every
+    multiply and add is its own op)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    P, _, ok = _jax_patches()
+    np.testing.assert_array_equal(TF.blur_patches(t(P).cuda()).cpu().numpy(), TF.blur_patches(t(P)).numpy())
+    c = TF.DESC_R - TF.HALF_PATCH
+    Pc = t(np.ascontiguousarray(P[:, c:-c, c:-c]))
+    w = torch.randn(2, Pc.shape[1] * Pc.shape[2], generator=torch.Generator().manual_seed(0))
+    flat = Pc.reshape(len(Pc), -1)
+    np.testing.assert_array_equal(TF._xla_gemv(flat.cuda(), w.cuda()).cpu().numpy(), TF._xla_gemv(flat, w).numpy())
+    assert _ulps(TF.ic_angle_from_patches(Pc.cuda(), t(ok).cuda()).cpu().numpy(),
+                 TF.ic_angle_from_patches(Pc, t(ok)).numpy()).max() <= 2
+
+
 def test_orb_descriptors_from_jax_patches():
+    """Given JAX's own blurred patches and angles, the port's bits are JAX's
+    exactly."""
     P, ang, ok = _jax_patches()
     Pb = JF.blur_patches(jnp.asarray(P))
     want = np.asarray(JF.orb_descriptors_from_patches(Pb, jnp.asarray(ang), jnp.asarray(ok)))
     got = TF.orb_descriptors_from_patches(t(np.asarray(Pb)), t(ang), t(ok)).numpy()
     assert got.dtype == np.uint8 and got.shape == (len(ok), 256)
-    assert (got != want).mean() <= 0.005
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_extract_level_on_jax_levels(frame):
+    """Both packages' ``extract_level`` on JAX's jitted pyramid levels of one
+    full-width step frame (1000 features, 8 scales): keypoints, scores and
+    masks equal on every level, angles within 2 ulp, descriptor bits equal
+    (before the port took XLA's blur and moment orders, 4 / 94 / 66 / 46 /
+    31 / 16 / 8 / 7 rows of frame 1 differed)."""
+    scene = step_scene.FULL
+    cfg = step_scene.scene_config(scene)
+    gray = to_grayscale(step_scene.step_frames(scene)[frame][0]).astype(np.float32)
+    levels = jax.jit(lambda im: JF.build_pyramid(im, cfg.n_scales, cfg.scale_factor))(jnp.asarray(gray))
+    masks = JF.generate_masks(jnp.asarray(gray), None, cfg.n_scales)
+    budgets = JF.features_per_level(cfg.n_features, cfg.n_scales, cfg.scale_factor)
+    level_j = jax.jit(JF.extract_level, static_argnums=(2, 3, 4))
+    for lvl, (im, k) in enumerate(zip(levels, budgets)):
+        m = np.asarray(JF.resize_linear(masks[lvl].astype(jnp.float32), im.shape) > 0.5)
+        xy_j, s_j, ok_j, ang_j, d_j = (np.asarray(v) for v in level_j(im, jnp.asarray(m), k, 20.0, 7.0))
+        xy_t, s_t, ok_t, ang_t, d_t = (v.numpy() for v in TF.extract_level(t(im), t(m), k, 20.0, 7.0))
+        np.testing.assert_array_equal(xy_t, xy_j, err_msg=f"level {lvl}")
+        np.testing.assert_array_equal(s_t, s_j)
+        np.testing.assert_array_equal(ok_t, ok_j)
+        assert ok_j.sum() > 0
+        assert _ulps(ang_t, ang_j).max() <= 2, f"level {lvl}"
+        np.testing.assert_array_equal(d_t, d_j, err_msg=f"level {lvl}")
 
 
 def test_full_image_forms_match_jax():

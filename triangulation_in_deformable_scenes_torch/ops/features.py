@@ -18,8 +18,8 @@ same function:
 - the contiguous-arc minima of the FAST score are a doubling min over the
   16 shifted differences instead of one [16, 9, H, W] gather (min is exact
   in any order);
-- the 7x7 patch blur is a sum of seven shifted slices in a fixed order, so
-  the card and the CPU blur alike.
+- the 7x7 patch blur is a sum of seven shifted slices in the order XLA's
+  CPU convolution sums them, so the card, the CPU and JAX blur alike.
 
 Hazards handled here (ROADMAP Queue C):
 
@@ -172,18 +172,20 @@ def gaussian_blur(im, ksize=7, sigma=2.0):
 
 
 def _blur_valid(x, ksize=7, sigma=2.0):
-    """VALID separable Gaussian over the last two axes of [N, H, W]: a sum of
-    ksize shifted slices, rows then columns, in a fixed order."""
+    """VALID separable Gaussian over the last two axes of [N, H, W], rows then
+    columns, each pass summed as XLA's CPU convolution sums a 7-tap VALID
+    kernel: products rounded, then ((p0 + p1) + (p2 + p3)) + (p4 + p5), then
+    + p6. Separate multiplies and adds, so no FMA contraction on either
+    device; the result is bit for bit ``jax.jit(blur_patches)``'s on the CPU."""
     k = _gauss(ksize, sigma, x.dtype, x.device)
-    w = x.shape[-1] - (ksize - 1)
-    rows = k[0] * x[..., :, 0:w]
-    for t in range(1, ksize):
-        rows = rows + k[t] * x[..., :, t : t + w]
-    h = x.shape[-2] - (ksize - 1)
-    out = k[0] * rows[..., 0:h, :]
-    for t in range(1, ksize):
-        out = out + k[t] * rows[..., t : t + h, :]
-    return out
+    return _sum7(_sum7(x, k, -1), k, -2)
+
+
+def _sum7(x, k, axis):
+    assert len(k) == 7, "the summation order is XLA's for seven taps"
+    n = x.shape[axis] - (len(k) - 1)
+    p = [k[t] * x.narrow(axis, t, n) for t in range(len(k))]
+    return (((p[0] + p[1]) + (p[2] + p[3])) + (p[4] + p[5])) + p[6]
 
 
 def fast_score(im):
@@ -323,11 +325,37 @@ def ic_angle_from_patches(patch, valid):
     """IC angle from pre-gathered [N, 31, 31] patches (FAST::IC_Angle)."""
     u = torch.arange(-HALF_PATCH, HALF_PATCH + 1, dtype=patch.dtype, device=patch.device)
     cm = torch.as_tensor(_CMASK, dtype=patch.dtype, device=patch.device)
-    m10 = (patch * (u[None, :] * cm)).sum(dim=(1, 2))
-    m01 = (patch * (u[:, None] * cm)).sum(dim=(1, 2))
+    # Column-major flattening (u outer, v inner), as XLA lays the einsum out.
+    w = torch.stack([(u[None, :] * cm).T.reshape(-1), (u[:, None] * cm).T.reshape(-1)])
+    m10, m01 = _xla_gemv(patch.transpose(1, 2).reshape(patch.shape[0], -1), w).unbind(1)
     ang = torch.atan2(m01, m10) * (180.0 / math.pi)
     ang = torch.where(ang < 0, ang + 360.0, ang)
     return torch.where(valid, ang, torch.zeros_like(ang))
+
+
+def _xla_gemv(x, w):
+    """Row dots [N, M] x [K, M] -> [N, K] summed as XLA's CPU matrix-vector
+    emitter sums ``jnp.einsum`` over a [N, 31, 31] patch under ``jit``: four
+    8-lane accumulators over 32-column tiles by fused multiply-adds, the four
+    added in order, the lanes halved 8 -> 4 -> 2 -> 1, then each remaining
+    column by one more fused multiply-add. A fused multiply-add is an f64
+    product and sum rounded once to f32 (exact here: an f32 value times a
+    small integer fits in f64, and the sum is exact unless the product lies
+    far below half an ulp of the sum), so both devices round as XLA does."""
+    n, m = x.shape
+    main = (m // 32) * 32
+    prod = x[:, None, :].double() * w[None].double()  # exact products [N, K, M]
+    acc = torch.zeros(n, w.shape[0], 32, dtype=x.dtype, device=x.device)
+    for c in range(0, main, 32):
+        acc = (prod[..., c : c + 32] + acc.double()).to(x.dtype)
+    v = ((acc[..., 0:8] + acc[..., 8:16]) + acc[..., 16:24]) + acc[..., 24:32]
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    s = v[..., 0]
+    for c in range(main, m):
+        s = (prod[..., c] + s.double()).to(x.dtype)
+    return s
 
 
 def _extract_patches(im, xy, r, valid):
