@@ -99,6 +99,44 @@ Phases, each of which must pass (nothing is caught):
    synchronizes; one warm extraction under ``torch.profiler`` for the
    device's idle share.
 
+12. features on the card: the patch blur (seven taps summed in XLA's CPU
+   order) and the angle moments (XLA's matrix-vector order) on the card
+   bit for bit the CPU's, angles within 2 ulp.
+13. the sweep harness: ``harness/sweep.run_sweep`` on the card over the two
+   generated conditions of the entry point's docstring example
+   (ARAP_depth_3mm, InRays, 20 cm, Planar, types 2 and 5, repetition 2;
+   one shared ``default_rng(0)``; ``sweep_config()`` at the sweep's full
+   budget, 5 rounds x 8 evaluations x 25 LM iterations), counts reset just
+   before and read just after: kernel-1 launches equal the damped solves;
+   per condition n_valid equal to the JAX CPU run's, the initial error
+   within INITIAL_TOL_M and the final within FINAL_REL_TOL of it; the
+   ``write_condition_csv`` table of the two journals holds the header and
+   the rows that ``journal_to_row`` reads from them.
+14. the pose-free bootstrap: the full-width step scene through
+   ``SequencePipeline(device="cuda")`` with a loader that yields no poses
+   (one round of the refinement, POSEFREE_BUDGET).
+   Its RANSAC draws come from a generator on the card, which draws
+   otherwise than JAX's ``jax.random`` (and than the CPU's generator), so
+   the pose is held to the scene's truth, not to JAX: R21 within
+   POSEFREE_ROT_TOL_DEG of the identity, t21's direction within
+   POSEFREE_TDIR_TOL_DEG of the true baseline's and |t21| within
+   POSEFREE_SCALE_RTOL of 0.0806 m (see those constants for why they are
+   wider than a single draw's error); kernel-3 launches equal the pair
+   attempts, kernel-1 launches the damped solves; matches and map points
+   within the sequence tolerances of the JAX known-pose run; a finite
+   final error.
+15. the two remaining selections on the card, on the reduced fixture of
+   phase 6: ``open3DArap`` (its Laplacian LU by ``torch.linalg``, no
+   kernel) final within OPEN3D_TOL_M of the JAX CPU value, ``eigen``
+   final within FINAL_REL_TOL, with kernel-1 launches equal to its damped
+   solves.
+16. the visualisers and the map layer: the reduced fixture's simulation
+   (one round of one evaluation, VIZ_BUDGET) with ``show_scene`` and
+   ``show_solution`` on the card; the snapshot PNG reads
+   back (``viz.draw.read_png``) at its size with drawn pixels, the PLY holds
+   the 2 x n_valid refined points (and the two camera centres), and
+   ``world_map`` holds n_valid map-point pairs.
+
 Then it prints the ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and
 when run from a directory that does not hold the package.
@@ -109,9 +147,12 @@ and budget, produced by
     JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 240 --rounds 5 --evals 8 --iters 25
     JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 861 --rounds 5 --evals 8 --iters 25
     JAX_PLATFORMS=cpu python tests/test_torch_sequence.py --rounds 5 --evals 8 --iters 25
+    JAX_PLATFORMS=cpu python tests/test_torch_harness.py
+    JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 60 --rounds 2 --evals 5 --iters 10 --set 'opt_selection="open3DArap"'
+    JAX_PLATFORMS=cpu python tests/test_torch_problems.py --points 60 --rounds 2 --evals 5 --iters 10 --set 'opt_weights_selection="eigen"'
 
-(the last with ``--port`` gives the port's own CPU values, from which the
-``SEQ_*`` tolerances are set).
+(the sequence and sweep runs with ``--port`` give the port's own CPU values;
+the ``SEQ_*`` tolerances are set from them).
 """
 
 from __future__ import annotations
@@ -242,6 +283,37 @@ MATCH_SWEEP_WINDOW = 100.0
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+# Sweep harness (phase 13): the JAX package's values of the two conditions
+# on the CPU (tests/test_torch_harness.py run as a script), by type.
+SWEEP_CONDITION = dict(model="ARAP_depth_3mm", triangulation="InRays", depth_cm=20, shape="Planar", experiment=2)
+JAX_SWEEP = {
+    2: dict(n_valid=240, initial=0.002619957654194584, final=0.0008434420145851891),
+    5: dict(n_valid=240, initial=0.002633339946995788, final=0.000993773200551332),
+}
+
+# Pose-free bootstrap (phase 14), held to the step scene's truth: camera 2
+# at the baseline (0.08, 0.01, 0) m with camera 1's orientation. Over 14
+# draws of the 17-hypothesis RANSAC (JAX's key 10 and the port's generator
+# seeds 0..11 on the CPU, the port's seed 10 on the card) the recovered pose
+# lay 0.00-0.57 deg from the identity, its t direction 1.9-11.7 deg from the
+# baseline's (JAX's own draw: 11.6 deg) and |t| 11.4 % below to 5.1 % above
+# 0.0806 m: 17 minimal sets on a two-plane scene with an 8 cm baseline pin
+# the direction of t loosely. The limits take that spread with a margin.
+POSEFREE_BASELINE_M = (0.08, 0.01, 0.0)
+POSEFREE_ROT_TOL_DEG = 1.0
+POSEFREE_TDIR_TOL_DEG = 15.0
+POSEFREE_SCALE_RTOL = 0.15
+POSEFREE_BUDGET = (1, 8, 25)  # rounds, search evaluations, LM iterations
+# The visualisers need a refined state, not a converged one.
+VIZ_BUDGET = dict(rounds=1, evals=1, iters=2)
+
+# The two remaining selections (phase 15) on the reduced fixture: JAX CPU
+# values (tests/test_torch_problems.py with --set, see the docstring).
+JAX_OPEN3D_FINAL_AV_ERROR_M = 0.010825837890464422
+JAX_EIGEN_FINAL_AV_ERROR_M = 0.010112001756259304
+JAX_REDUCED_INITIAL_AV_ERROR_M = 0.002492060152149302
+OPEN3D_TOL_M = 1e-5  # one f32 LU of the same Laplacian on each side
+
 PEAK_BYTES_PER_S = 3.35e12
 
 SOLVE_KERNELS = ("damped_solve_kernel", "pcg_kernel")
@@ -540,15 +612,22 @@ def refinement_phase():
           f"unrefined error {acc['err_x0']:.3e} <= {REFINE_LIMIT:.0e}: the case cannot tell")
 
 
-def run_pipeline(device, num_points, rounds, evals, iters, seed=0):
+def run_pipeline(device, num_points, rounds, evals, iters, seed=0, overrides=None, workdir=None):
+    """The simulation on the sweep condition's settings with ``overrides``
+    replacing Config fields, in ``workdir`` (the journal, and ``viz/``) or
+    a temporary directory."""
+    import dataclasses
+
     from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
     from triangulation_in_deformable_scenes_torch.pipeline.simulation import SimulationPipeline
 
     cfg = sc.sweep_config(n_optimizations=rounds, nlopt_evals=evals, n_opt_iterations=iters)
+    cfg = dataclasses.replace(cfg, **(overrides or {}))
     with tempfile.TemporaryDirectory() as tmp:
-        of, mf = sc.write_fixture(os.path.join(tmp, "fixture"), num_points=num_points, seed=seed)
+        work = workdir or tmp
+        of, mf = sc.write_fixture(os.path.join(work, "fixture"), num_points=num_points, seed=seed)
         pipe = SimulationPipeline(cfg, seed=seed, mesh_backend=sc.MESH_BACKEND, device=device)
-        return pipe.run(of, mf, journal_path=os.path.join(tmp, "Experiment.txt"))
+        return pipe.run(of, mf, journal_path=os.path.join(work, "Experiment.txt"))
 
 
 def main_path_phase():
@@ -1360,6 +1439,211 @@ def sequence_phase():
     return scans
 
 
+def features_phase():
+    """The patch blur and the angle moments on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import features as F
+
+    rng = np.random.default_rng(3)
+    P = rng.integers(0, 256, size=(300, 11, 11)).astype(np.float32)
+    P = torch.as_tensor(np.repeat(np.repeat(P, 4, 1), 4, 2)[:, :43, :43].copy())
+    P = P + torch.as_tensor(rng.uniform(0, 1, size=P.shape).astype(np.float32)) * (P > 128)
+    blur_cpu, blur_gpu = F.blur_patches(P), F.blur_patches(P.cuda()).cpu()
+    c = F.DESC_R - F.HALF_PATCH
+    Pc = P[:, c:-c, c:-c].contiguous()
+    ok = torch.ones(len(P), dtype=torch.bool)
+    a_cpu, a_gpu = F.ic_angle_from_patches(Pc, ok), F.ic_angle_from_patches(Pc.cuda(), ok.cuda()).cpu()
+    ulps = ((a_cpu.double() - a_gpu.double()).abs()
+            / torch.as_tensor(np.spacing(np.maximum(a_cpu.abs().numpy(), a_gpu.abs().numpy())))).max().item()
+    d_blur = int((blur_cpu != blur_gpu).sum())
+    log(f"[features] blur outputs differing cuda vs cpu: {d_blur} of {blur_cpu.numel()}; "
+        f"angles: max {ulps:.1f} ulp apart")
+    check(d_blur == 0, "the patch blur on the card differs from the CPU's")
+    check(ulps <= 2, "the angles on the card lie more than 2 ulp from the CPU's")
+
+
+def sweep_phase():
+    """The sweep harness on the card over two generated conditions."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import aggregate, sweep_config as sc
+    from triangulation_in_deformable_scenes_torch.harness.sweep import SweepCondition, run_sweep
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    c = SWEEP_CONDITION
+    conds = [SweepCondition(c["model"], c["triangulation"], c["depth_cm"], c["shape"], t, c["experiment"])
+             for t in sorted(JAX_SWEEP)]
+    with tempfile.TemporaryDirectory() as out:
+        dc.LAUNCHES = 0
+        dc.LAUNCHES_BY_DIM.clear()
+        t0 = time.perf_counter()
+        results = run_sweep(sc.sweep_config(), conds, out, seed=0, mesh_backend=sc.MESH_BACKEND, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dc.LAUNCHES
+        solves = sum(r.stats.lm_solves for _, r in results)
+        log(f"[sweep] {len(results)} conditions wall_s={wall:.3f} kernel1_launches={launches} "
+            f"damped_solves={solves} by_dim={dict(sorted(dc.LAUNCHES_BY_DIM.items()))}")
+        check(launches > 0 and launches == solves, f"kernel-1 launches {launches} != damped solves {solves}")
+        for cond, res in results:
+            want = JAX_SWEEP[cond.experiment_type]
+            log(f"[sweep] type {cond.experiment_type}: n_valid={int(res.valid.sum())} rounds={res.rounds} "
+                f"weights={res.weights.tolist()} initial_av_error_m={res.initial.av_error!r} "
+                f"final_av_error_m={res.final.av_error!r} (JAX CPU {want['initial']!r} -> {want['final']!r}) "
+                f"lm_solves={res.stats.lm_solves}")
+            check(int(res.valid.sum()) == want["n_valid"], f"type {cond.experiment_type}: n_valid differs from JAX")
+            check(abs(res.initial.av_error - want["initial"]) < INITIAL_TOL_M,
+                  f"type {cond.experiment_type}: initial error differs from JAX")
+            check(np.isfinite(res.final.av_error) and abs(res.final.av_error - want["final"]) < FINAL_REL_TOL * want["final"],
+                  f"type {cond.experiment_type}: final error outside the tolerance of JAX")
+        table = aggregate.write_condition_csv(os.path.join(out, "errors.csv"), out, [c["model"]], [c["triangulation"]],
+                                              shapes=[c["shape"]], depth_cm=c["depth_cm"], experiment=c["experiment"])
+        with open(table, newline="") as f:
+            rows = list(csv.reader(f))
+        tag = f"{c['model']}-{c['triangulation']}"
+        check(rows[0] == ["Avg Movement", "Shape", "Gaussian Mov", "Rigid Mov", f"{tag} Initial (mm)",
+                          f"{tag} Final (mm)"], f"unexpected CSV header {rows[0]}")
+        check(len(rows) == 1 + len(conds), f"CSV rows {len(rows) - 1} != conditions {len(conds)}")
+        for cond, row in zip(conds, rows[1:]):
+            r = aggregate.journal_to_row(os.path.join(out, cond.result_dir, "Experiment.txt"))
+            want_row = [aggregate._fmt(r["movement"]), c["shape"]] + row[2:4] + [
+                aggregate._fmt(r["initial"]), aggregate._fmt(r["final"])]
+            check(row == want_row, f"CSV row {row} != journal {want_row}")
+        log(f"[sweep] write_condition_csv: {rows}")
+    return launches
+
+
+class _PoseFreeLoader:
+    """The step scene's frames without their poses."""
+
+    def __init__(self, frames):
+        self._frames = frames
+
+    def frames(self, start=0, end=None, step=1):
+        for i, (rgb, depth, _pose) in enumerate(self._frames[start:end:step]):
+            yield i, rgb, depth, None, float(i)
+
+
+def posefree_phase():
+    """The pose-free bootstrap on the full-width step scene."""
+    import numpy as np
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import step_scene as ss
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+    from triangulation_in_deformable_scenes_torch.ops import match_scan as ms
+    from triangulation_in_deformable_scenes_torch.pipeline import sequence as seq
+
+    # One round of the refinement: the known-pose phase already runs the
+    # full budget on this scene; what is new here is the bootstrap.
+    pipe = seq.SequencePipeline(ss.scene_config(ss.FULL, *POSEFREE_BUDGET), device="cuda")
+    attempts = []
+    init_pair = pipe.initialize_pair
+
+    def counted(*args, **kwargs):
+        attempts.append(1)
+        return init_pair(*args, **kwargs)
+
+    pipe.initialize_pair = counted
+    with tempfile.TemporaryDirectory() as tmp:
+        ms.LAUNCHES = 0
+        dc.LAUNCHES = 0
+        dc.LAUNCHES_BY_DIM.clear()
+        t0 = time.perf_counter()
+        out = pipe.run(_PoseFreeLoader(ss.step_frames(ss.FULL)), journal_path=os.path.join(tmp, "Experiment.txt"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        scans, dense = ms.LAUNCHES, dc.LAUNCHES
+    check(out is not None, "the pose-free sequence path triangulated no pair")
+    init, st = out["init"], out["stats"]
+    check(init.T2w_est is not None, "the pose-free branch did not run")
+    R, t = (x.cpu().numpy().astype(np.float64) for x in init.T2w_est)
+    t_true = -np.asarray(POSEFREE_BASELINE_M)
+    rot_deg = float(np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))))
+    tdir_deg = float(np.degrees(np.arccos(np.clip(t @ t_true / (np.linalg.norm(t) * np.linalg.norm(t_true)), -1, 1))))
+    scale = float(np.linalg.norm(t))
+    log(f"[posefree] n_matches={init.n_matches} n_triangulated={init.n_triangulated} "
+        f"parallax_deg={init.parallax_deg!r} R21_from_identity_deg={rot_deg:.4f} t21_direction_error_deg={tdir_deg:.3f} "
+        f"t21_norm_m={scale:.5f} (truth {np.linalg.norm(t_true):.5f})")
+    log(f"[posefree] initial_av_error_m={out['initial'].av_error!r} final_av_error_m={out['final'].av_error!r} "
+        f"pair_attempts={len(attempts)} kernel3_launches={scans} kernel1_launches={dense} "
+        f"lm_solves={st.lm_solves} wall_s={wall:.3f}")
+    check(scans >= 1 and scans == len(attempts), f"kernel-3 launches {scans} != pair attempts {len(attempts)}")
+    check(dense > 0 and dense == st.lm_solves, f"kernel-1 launches {dense} != damped solves {st.lm_solves}")
+    check(rot_deg <= POSEFREE_ROT_TOL_DEG, f"R21 {rot_deg:.3f} deg from the identity")
+    check(tdir_deg <= POSEFREE_TDIR_TOL_DEG, f"t21 direction {tdir_deg:.2f} deg from the baseline's")
+    check(abs(scale - np.linalg.norm(t_true)) <= POSEFREE_SCALE_RTOL * np.linalg.norm(t_true), f"|t21| {scale:.5f} m")
+    for name, got, want in (("matches", init.n_matches, JAX_SEQ_N_MATCHES),
+                            ("map points", init.n_triangulated, JAX_SEQ_N_TRIANGULATED)):
+        check(abs(got - want) <= SEQ_COUNT_REL_TOL * want, f"{name} {got} outside the tolerance of JAX {want}")
+    check(np.isfinite(out["final"].av_error), "the pose-free final error is not finite")
+    return scans
+
+
+def selection_phase():
+    """open3DArap and eigen on the card, reduced fixture."""
+    import numpy as np
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+
+    for name, over, want, tol in (
+        ("open3DArap", {"opt_selection": "open3DArap"}, JAX_OPEN3D_FINAL_AV_ERROR_M, OPEN3D_TOL_M),
+        ("eigen", {"opt_weights_selection": "eigen"}, JAX_EIGEN_FINAL_AV_ERROR_M,
+         FINAL_REL_TOL * JAX_EIGEN_FINAL_AV_ERROR_M),
+    ):
+        dc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = run_pipeline("cuda", **REDUCED, overrides=over)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dc.LAUNCHES
+        log(f"[selection] {name}: rounds={res.rounds} weights={res.weights.tolist()} "
+            f"initial_av_error_m={res.initial.av_error!r} final_av_error_m={res.final.av_error!r} "
+            f"(JAX CPU {JAX_REDUCED_INITIAL_AV_ERROR_M!r} -> {want!r}) lm_solves={res.stats.lm_solves} "
+            f"kernel1_launches={launches} wall_s={wall:.3f}")
+        check(abs(res.initial.av_error - JAX_REDUCED_INITIAL_AV_ERROR_M) < INITIAL_TOL_M, f"{name}: initial error")
+        check(np.isfinite(res.final.av_error) and abs(res.final.av_error - want) < tol,
+              f"{name}: final error outside the tolerance of JAX")
+        check(launches == res.stats.lm_solves, f"{name}: kernel-1 launches {launches} != damped solves")
+        if name == "eigen":
+            check(launches > 0, "the eigen selection launched no damped solve")
+
+
+def viz_phase():
+    """The visualisers and the map layer on the card's simulation."""
+    import numpy as np
+
+    from triangulation_in_deformable_scenes_torch.viz import draw
+
+    with tempfile.TemporaryDirectory() as work:
+        res = run_pipeline("cuda", REDUCED["num_points"], **VIZ_BUDGET, overrides={"show_scene": True, "show_solution": True},
+                           workdir=work)
+        vdir = os.path.join(work, "viz")
+        names = sorted(os.listdir(vdir))
+        pngs = [f for f in names if f.endswith(".png")]
+        plys = [f for f in names if f.endswith(".ply")]
+        check(len(pngs) == 1 and len(plys) == 1, f"viz files {names}")
+        im = draw.read_png(os.path.join(vdir, pngs[0]))
+        n_valid = int(res.valid.sum())
+        with open(os.path.join(vdir, plys[0])) as f:
+            ply = f.read()
+    m = res.world_map
+    kfs = sorted(m.keyframes)
+    obs = [len(m.kf_obs[k]) for k in kfs]
+    log(f"[viz] {pngs[0]} {im.shape} drawn_pixels={int((im != 255).any(-1).sum())} {plys[0]} "
+        f"n_valid={n_valid} map_points={len(m.map_points)} observations={obs}")
+    check(im.shape == (800, 800, 3) and (im != 255).any(), "the snapshot PNG is empty or misshapen")
+    check(f"element vertex {2 * n_valid + 2}" in ply, "the PLY does not hold 2 x n_valid points and two cameras")
+    check(len(kfs) == 2 and len(m.map_points) == 2 * n_valid and obs == [n_valid, n_valid],
+          "world_map does not hold n_valid map-point pairs")
+
+
 def setup():
     """Card line and build; returns the card line."""
     import torch
@@ -1406,6 +1690,11 @@ def main():
     cross_large_phase()
     m = match_phase()
     scan_launches = sequence_phase()
+    features_phase()
+    for phase in (sweep_phase, posefree_phase, selection_phase, viz_phase):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[{phase.__name__}] passed in {time.perf_counter() - t0:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     p = pcg_rows[LARGE_POINTS]

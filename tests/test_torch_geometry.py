@@ -94,6 +94,20 @@ def test_fit_rotation_det_flip_matches():
     close(torch.linalg.det(Rt), np.ones(64), atol=1e-5)
 
 
+def test_quat_to_matrix_matches():
+    """Random and unnormalised quaternions, the identity and the zero
+    quaternion (identity by the n > 0 guard): within 1e-6 of JAX (the same
+    f32 products; XLA may fuse them), proper rotations."""
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(50, 4)) * rng.uniform(0.5, 2.0, size=(50, 1))
+    q = np.concatenate([q, [[0.0, 0.0, 0.0, 1.0], [0.0, 0.0, 0.0, 0.0]]])
+    Rt = t_lie.quat_to_matrix(T(q))
+    close(Rt, j_lie.quat_to_matrix(J(q)), atol=1e-6)
+    close(torch.linalg.det(Rt[:-1]), np.ones(51), atol=1e-5)
+    close(Rt[-2], np.eye(3), atol=0)
+    close(Rt[-1], np.eye(3), atol=0)
+
+
 # ------------------------------------------------------------------ camera
 
 def _points(n=200, seed=0):

@@ -58,19 +58,3 @@ def test_journal_blocks_parse_alike(runs):
     for key in ("Av. movement", "Av. error", "RMSE"):
         assert bt["INITIAL"][key] == pytest.approx(bj["INITIAL"][key], rel=1e-5), key
         assert bt["FINAL"][key] == pytest.approx(bj["FINAL"][key], rel=1e-4), key
-
-
-@pytest.mark.parametrize("flag", ["show_scene", "show_solution"])
-def test_visualiser_flags_raise_until_ported(flag):
-    """JAX writes a PNG and a PLY when either flag is set
-    (``pipeline/simulation.py:259``); the port has no visualisers yet and
-    says so instead of ignoring the flag."""
-    import dataclasses
-
-    from triangulation_in_deformable_scenes_torch.harness import sweep_config as sc
-    from triangulation_in_deformable_scenes_torch.pipeline.simulation import SimulationPipeline
-
-    cfg = dataclasses.replace(sc.sweep_config(), **{flag: True})
-    with pytest.raises(NotImplementedError, match="A16"):
-        SimulationPipeline(cfg, device="cpu")
-    SimulationPipeline(sc.sweep_config(), device="cpu")

@@ -13,9 +13,12 @@ The JAX package runs one round's search as a single jitted program
 objective values stay on the device in f32; each decision reads its
 comparisons back to the host.
 
-Not ported yet: the ``eigen`` weights selection (``_numdiff_lm``, ROADMAP
-A14) and the ``open3DArap`` selection (``arap.arap_deform``, ROADMAP A13);
-both raise ``NotImplementedError``.
+The two other selections are ported as in JAX: ``open3DArap`` deforms the
+first keyframe's mesh with ``ops/arap.arap_deform`` (only vertex 0 pinned,
+to the first moved point: the reference's zero-initialised constraint
+list), and the ``eigen`` weights selection runs ``_numdiff_lm``, a host
+numpy LM over the weights whose every residual evaluation is an inner
+solve followed by the pixel deviations of ``utils/metrics``.
 """
 
 from __future__ import annotations
@@ -27,8 +30,11 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import arap as arap_ops
 from ..ops import camera as cam_ops
 from ..ops import lie
+from ..ops import mesh as mesh_ops
+from ..utils import metrics as metrics_mod
 from ..precision import FP, TINY
 from . import deformable
 
@@ -150,6 +156,48 @@ def arap_optimization(cam_kind, data, state, weights, cfg: OuterConfig, stats: O
     if stats is not None:
         stats.add(res)
     return res.state, _update_magnitude(data.valid, res.state, state)
+
+
+def _numdiff_lm(residuals, x0, lb, ub, max_evals=10, eps_rel=1e-3, lam0=1e-3):
+    """Tiny Levenberg-Marquardt with a forward-difference Jacobian over a
+    low-dimensional weight vector (the reference's Eigen
+    ``NumericalDiff<EigenOptimizationFunctor>`` path; the port's own copy of
+    ``outer.py:167-211``, numpy). Frozen dimensions (lb == ub) are skipped."""
+    x = np.clip(np.asarray(x0, dtype=np.float64), lb, ub)
+    free = np.nonzero(ub > lb)[0]
+    n_eval = 0
+    r = residuals(x)
+    n_eval += 1
+    lam = lam0
+    while n_eval < max_evals and len(free):
+        J = np.zeros((len(r), len(free)))
+        for c, i in enumerate(free):
+            h = max(abs(x[i]) * eps_rel, 1e-9)
+            xp = x.copy()
+            xp[i] = min(x[i] + h, ub[i])
+            rp = residuals(xp)
+            n_eval += 1
+            J[:, c] = (rp - r) / max(xp[i] - x[i], 1e-12)
+            if n_eval >= max_evals:
+                break
+        A = J.T @ J + lam * np.eye(len(free))
+        g = J.T @ r
+        try:
+            delta = np.linalg.solve(A, -g)
+        except np.linalg.LinAlgError:
+            break
+        x_new = x.copy()
+        x_new[free] = np.clip(x[free] + delta, lb[free], ub[free])
+        if n_eval >= max_evals:
+            break
+        r_new = residuals(x_new)
+        n_eval += 1
+        if r_new @ r_new < r @ r:
+            x, r = x_new, r_new
+            lam = max(lam / 3.0, 1e-12)
+        else:
+            lam *= 10.0
+    return x
 
 
 def _pixel_sigma_device(cam_kind, data: deformable.PairData, state: deformable.PairState):
@@ -364,9 +412,29 @@ def deformation_optimization(
         rounds = i
 
         if cfg.opt_selection == "open3DArap":
-            raise NotImplementedError("the open3DArap selection is ROADMAP item A13, not ported yet")
-        if cfg.opt_selection == "twoOptimizations" and cfg.weights_selection == "eigen":
-            raise NotImplementedError("the eigen weights selection is ROADMAP item A14, not ported yet")
+            # ``arapOpen3DOptimization`` (``outer.py:515-543``): deform the
+            # first keyframe's mesh as rigidly as possible and take it as the
+            # second point set; only vertex 0 is pinned, to the first moved
+            # point, as the reference's zero-initialised constraint list does.
+            vidx = torch.as_tensor(np.nonzero(np.asarray(valid, dtype=bool))[0], device=dev)
+            p1v = state.p1[vidx]
+            ctx = mesh_ops.build_mesh_context(p1v.cpu().numpy(), backend=mesh_backend)
+            deformed = arap_ops.arap_deform(
+                p_rest=p1v,
+                nbr=torch.as_tensor(ctx.nbr, dtype=torch.int64, device=dev),
+                nbr_mask=torch.as_tensor(ctx.nbr_mask, device=dev),
+                weights=torch.as_tensor(ctx.weights, dtype=FP, device=dev),
+                constraint_idx=torch.zeros(1, dtype=torch.int64, device=dev),
+                constraint_pos=state.p2[vidx[:1]],
+                iters=cfg.n_opt_iterations,
+            )
+            new_p2 = state.p2.clone()
+            new_p2[vidx] = deformed
+            update = float(torch.linalg.norm(new_p2[vidx] - state.p2[vidx], dim=-1).sum())
+            state = state._replace(p2=new_p2)
+            if on_round is not None and i != cfg.n_optimizations:
+                on_round(i, state, weights)
+            continue
 
         data = deformable.make_pair_data(
             kp1=kp1, kp2=kp2, depth1=d1, depth2=d2, valid=valid, cam_params=cam_params,
@@ -374,7 +442,19 @@ def deformation_optimization(
             mesh_backend=mesh_backend, scale_priors=scale_priors, device=dev,
         )
 
-        if cfg.opt_selection == "twoOptimizations":
+        if cfg.opt_selection == "twoOptimizations" and cfg.weights_selection == "eigen":
+            # ``EigenOptimization.h:30-63`` (``outer.py:562-578``): LM over the
+            # weights with residuals (log sigma_c1)^2 and (log sigma_c2)^2.
+            def residuals(x):
+                cand_state, _ = arap_optimization(cam_kind, data, state, x, cfg, stats)
+                pix = metrics_mod.pixels_stand_dev(
+                    cam_kind, cam_params, T1w, T2w, cand_state.p1, cand_state.p2, kp1, kp2, valid, device=dev
+                )
+                return np.array([np.log(max(pix.desvc1, 1e-300)) ** 2, np.log(max(pix.desvc2, 1e-300)) ** 2])
+
+            weights = _numdiff_lm(residuals, weights, lb, ub, max_evals=10)
+            state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
+        elif cfg.opt_selection == "twoOptimizations":
             wide = (lb > 0) & (ub / np.maximum(lb, 1e-300) > 1e2)
 
             def to_search(x):

@@ -2,9 +2,9 @@
 
 Counterpart of ``triangulation_in_deformable_scenes_tpu/ops/arap.py:31-171``
 (``compute_rotations`` == the reference's ``computeR``,
-``arap_edge_energy`` == ``EdgeARAP::computeError``). Padded neighbor slots
-(-1) gather row 0 and are masked downstream. ``arap_deform`` (the
-open3DArap branch) is not ported yet.
+``arap_edge_energy`` == ``EdgeARAP::computeError``, ``arap_deform`` == the
+local-global deformation of the open3DArap selection). Padded neighbor slots
+(-1) gather row 0 and are masked downstream.
 """
 
 from __future__ import annotations
@@ -60,6 +60,40 @@ def arap_edge_energy(p1, p2, R, nbr, nbr_mask, weights, area, Rg, tg):
         + energy_global
     )
     return torch.where(nbr_mask, energy, torch.zeros_like(energy))
+
+
+def arap_deform(p_rest, nbr, nbr_mask, weights, constraint_idx, constraint_pos, iters: int = 50, p_init=None):
+    """Local-global ARAP surface deformation (Sorkine-Alexa) for the
+    open3DArap selection (``arap.py:90-147``): the weighted graph Laplacian
+    (L[i, i] = sum_j w_ij, L[i, j] = -w_ij) with identity rows at the
+    constraints and a 1e-12 ridge, LU-factorised once and reused by each of
+    ``iters`` steps of per-vertex rotation fit and linear solve. The
+    Laplacian's LU is ``torch.linalg.lu_factor`` / ``lu_solve`` on both
+    devices (JAX's is ``jax.scipy.linalg``, outside any Pallas kernel)."""
+    n = p_rest.shape[0]
+    dtype, dev = p_rest.dtype, p_rest.device
+    w = torch.where(nbr_mask, weights, torch.zeros_like(weights))
+    j_safe = torch.clamp(nbr, min=0)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    ar = torch.arange(n, device=dev)
+
+    L = torch.zeros((n, n), dtype=dtype, device=dev)
+    L.index_put_((ar[:, None].expand_as(nbr), j_safe), -w, accumulate=True)
+    L[ar, ar] += w.sum(1)
+    cmask = torch.zeros(n, dtype=torch.bool, device=dev)
+    cmask[constraint_idx] = True
+    L = torch.where(cmask[:, None], eye, L) + 1e-12 * eye
+    lu, piv = torch.linalg.lu_factor(L)
+
+    cpos = torch.zeros((n, 3), dtype=dtype, device=dev)
+    cpos[constraint_idx] = constraint_pos
+    p = p_rest if p_init is None else p_init
+    rest_edges = p_rest[:, None, :] - p_rest[j_safe]
+    for _ in range(iters):
+        R = compute_rotations(p_rest, p, nbr, nbr_mask, weights)
+        rhs_edges = 0.5 * torch.einsum("nk,nkab,nkb->na", w, R[:, None] + R[j_safe], rest_edges)
+        p = torch.linalg.lu_solve(lu, piv, torch.where(cmask[:, None], cpos, rhs_edges))
+    return p
 
 
 def relative_edge_errors(p1, p2, nbr, nbr_mask):

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) operations on batched tensors.
 
-Counterpart of ``triangulation_in_deformable_scenes_tpu/ops/lie.py:21-156``.
+Counterpart of ``triangulation_in_deformable_scenes_tpu/ops/lie.py:21-174``.
 A rigid transform is a pair ``(R[..., 3, 3], t[..., 3])``; the se(3) tangent
 is ordered (omega, upsilon), rotation first, as g2o's ``SE3Quat::exp``.
 Every function is made of plain tensor ops, so ``torch.func.jacfwd`` passes
@@ -148,3 +148,22 @@ def fit_rotation(H):
     flip = torch.stack([one, one, torch.where(det < 0, -one, one)], dim=-1)
     U_fix = U * flip[..., None, :]
     return V @ torch.swapaxes(U_fix, -1, -2)
+
+
+def quat_to_matrix(q):
+    """Quaternion (x, y, z, w) [..., 4] -> rotation matrix [..., 3, 3]
+    (``lie.py:159-174``); a zero quaternion gives the identity."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = torch.where(n > 0, 2.0 / n, torch.zeros_like(n))
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    return torch.stack(
+        [
+            torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+            torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+            torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

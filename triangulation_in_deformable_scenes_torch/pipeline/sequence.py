@@ -16,12 +16,14 @@ triangulates, like the reference mains.
 
 Device work is f32 on ``device`` (default ``cuda``; ``device="cpu"`` must be
 asked for); the gates, depth lookups and metrics are host numpy, as in JAX.
-
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the pose-free bootstrap (``sequence.py:175-210``, RANSAC over
-``ops/epipolar.py``; A10b) and the visualisers (``show_scene`` /
-``show_solution``; A16). The map layer (A15) is not built: ``world_map`` is
-None, as in ``pipeline/simulation.py``.
+Without poses (a loader that yields ``pose = None``) the pair's pose comes
+from the pose-free bootstrap (``ops/epipolar.py``: cluster-sampled RANSAC
+over batched 8-point hypotheses, its draws from a generator seeded with 10
+on the device; JAX's ``jax.random`` draws cannot be reproduced, so the two
+packages sample different hypotheses) with |t| from the depth sensor. The
+headless visualisers (``show_scene`` / ``show_solution``) and the map layer
+(``pipeline/worldmap.py``, ``world_map`` in the result) are numpy code fed
+with host copies, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..models import deformable, outer
 from ..ops import camera as cam_ops
+from ..ops import epipolar as epi_ops
 from ..ops import features as feat_ops
 from ..ops import lie
 from ..ops import matching as match_ops
@@ -43,6 +46,8 @@ from ..ops import triangulation as tri
 from ..precision import FP
 from ..utils import metrics as metrics_mod
 from ..utils.journal import ExperimentJournal
+from ..viz import FrameVisualizer, MapVisualizer
+from .worldmap import build_pair_map
 
 
 def to_grayscale(im: np.ndarray) -> np.ndarray:
@@ -76,20 +81,28 @@ class PairInitResult:
     d2: np.ndarray = None
     s1: float = 1.0
     s2: float = 1.0
+    # Pose-free mode: the recovered world-to-camera poses (None when the
+    # loader's poses were used).
+    T1w_est: tuple = None
+    T2w_est: tuple = None
     # Depth-scale prior (s1_0, info1, s2_0, info2) from the estimate's SE.
     scale_priors: tuple = None
 
 
 class SequencePipeline:
-    def __init__(self, cfg: Config, border_mask: Optional[np.ndarray] = None, device="cuda"):
-        if cfg.show_scene or cfg.show_solution:
-            raise NotImplementedError("the visualisers (showScene/showSolution) are ROADMAP item A16, not ported yet")
+    def __init__(self, cfg: Config, border_mask: Optional[np.ndarray] = None, viz_dir: str = "./viz",
+                 device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam_kind = cam_ops.KB8
         self.cam_params = cfg.kb8_params
         self.border_mask = border_mask
         self.scale_factors = np.array([cfg.scale_factor**o for o in range(cfg.n_scales)])
+        # Headless visualisers, gated like the reference's showScene flags
+        # (``sequence.py:96-100``); numpy code fed with host copies.
+        self.frame_viz = FrameVisualizer(enabled=cfg.show_scene, out_dir=viz_dir)
+        self.map_viz = MapVisualizer(enabled=cfg.show_scene or cfg.show_solution, out_dir=viz_dir,
+                                     draw_rays=cfg.draw_rays)
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), dtype=FP, device=self.device)
@@ -126,7 +139,13 @@ class SequencePipeline:
         T2w,
         depth_ref: np.ndarray,
         depth_cur: np.ndarray,
+        ransac_draws: Optional[tuple] = None,
     ) -> PairInitResult:
+        """Match, triangulate and gate one frame pair. With ``T2w`` None the
+        pose comes from the pose-free bootstrap, whose RANSAC draws come
+        from a generator seeded with 10 on the pipeline's device, or from
+        ``ransac_draws`` = (init_idx [8], sample_idx [17, 8]) when given
+        (``ops/epipolar.py``)."""
         cfg = self.cfg
         matches, n_matches = match_ops.search_for_initialization(
             k_ref.xy,
@@ -160,10 +179,34 @@ class SequencePipeline:
         xn2 = xn2 / torch.linalg.norm(xn2, dim=-1, keepdim=True)
 
         inliers = np.ones(len(kp1), dtype=bool)
+        T1w_est = T2w_est = None
         if T2w is None:
-            raise NotImplementedError(
-                "the pose-free bootstrap (RANSAC over ops/epipolar.py) is ROADMAP item A10b, not ported yet"
+            # Pose-free bootstrap (``sequence.py:173-210``): cluster-sampled
+            # RANSAC over batched 8-point hypotheses recovers T21 up to the
+            # monocular scale; the depth sensor then fixes |t|.
+            if T1w is None:
+                T1w = (torch.eye(3, dtype=FP, device=self.device), torch.zeros(3, dtype=FP, device=self.device))
+            # A zero Epipolar.th (unset in some yamls) would zero the
+            # consensus: 0.01 rad then, as in JAX.
+            epi_th = float(cfg.epipolar_th) if cfg.epipolar_th > 0 else 0.01
+            init_idx, sample_idx = ransac_draws if ransac_draws is not None else (None, None)
+            gen = torch.Generator(device=self.device).manual_seed(10)
+            R21, t21, inl, _ = epi_ops.initialize_pose_free(
+                self._t(kp1), xn1, xn2, torch.ones(len(kp1), dtype=torch.bool, device=self.device), gen,
+                epipolar_th=epi_th, init_idx=init_idx, sample_idx=sample_idx,
             )
+            # |t| = median(d / z_prov) over a unit-baseline triangulation,
+            # when at least 8 points qualify.
+            x1p, _ = tri.triangulate(xn1, xn2, T1w, lie.compose(R21, t21, *T1w), method=tri.NRSLAM)
+            z_prov = lie.apply(*T1w, x1p)[:, 2].cpu().numpy()
+            d_prov = self.depth_at(depth_ref, kp1)
+            inl = inl.cpu().numpy()
+            ok = inl & (z_prov > 0) & (d_prov > 0)
+            if ok.sum() >= 8:
+                t21 = t21 * float(np.median(d_prov[ok] / z_prov[ok]))
+            T2w = lie.compose(R21, t21, *T1w)
+            inliers &= inl
+            T1w_est, T2w_est = T1w, T2w
         if cfg.checks:
             # Epipolar filter with E from the KNOWN relative pose
             # (MonocularMapInitializer.cc:119-178 computes E from the pose).
@@ -251,6 +294,8 @@ class SequencePipeline:
             d2=d2,
             s1=s1,
             s2=s2,
+            T1w_est=T1w_est,
+            T2w_est=T2w_est,
             scale_priors=scale_priors,
         )
 
@@ -265,25 +310,43 @@ class SequencePipeline:
         mesh_backend: str = "auto",
     ):
         """Frame loop; stops after the first triangulated pair (ref mains)."""
-        ref = ref_pose = ref_depth = None
+        ref = ref_pose = ref_depth = ref_gray = None
         for _, rgb, depth, pose, _ in loader.frames(start, end, step):
-            kps = self.extract(to_grayscale(rgb))
+            gray = to_grayscale(rgb)
+            kps = self.extract(gray)
+            if self.frame_viz.enabled:
+                self.frame_viz.draw_features(kps.xy.cpu().numpy(), gray, kps.valid.cpu().numpy(), name="features")
             # Loaders without trajectory ground truth yield pose None: the
-            # pose-free bootstrap (A10b) would recover it.
+            # pose-free bootstrap recovers it.
             Tcw = None
             if pose is not None and pose[0] is not None:
                 Tcw = lie.inverse(self._t(pose[0]), self._t(pose[1]))
             if ref is None:
-                ref, ref_pose, ref_depth = kps, Tcw, depth
+                ref, ref_pose, ref_depth, ref_gray = kps, Tcw, depth, gray
+                self._set_reference_frame(kps, gray)
                 continue
 
             init = self.initialize_pair(ref, kps, ref_pose, Tcw, ref_depth, depth)
             if not init.accepted:
                 if init.n_matches < self.cfg.min_matches:
-                    ref, ref_pose, ref_depth = kps, Tcw, depth
+                    ref, ref_pose, ref_depth, ref_gray = kps, Tcw, depth, gray
+                    self._set_reference_frame(kps, gray)
                 continue
-            return self._refine_and_report(init, ref_pose, Tcw, journal_path, mesh_backend)
+
+            if self.frame_viz.enabled:
+                # The match list is compact: pair i of kp1 is pair i of kp2.
+                pairing = np.arange(len(init.kp1))
+                self.frame_viz.draw_matches(init.kp1, ref_gray, init.kp2, gray, pairing, name="matches")
+                self.frame_viz.draw_triangulated_matches(init.kp2, gray, pairing, init.valid, name="triangulated")
+
+            T1w_use = init.T1w_est if init.T1w_est is not None else ref_pose
+            T2w_use = init.T2w_est if init.T2w_est is not None else Tcw
+            return self._refine_and_report(init, T1w_use, T2w_use, journal_path, mesh_backend)
         return None
+
+    def _set_reference_frame(self, kps, gray):
+        if self.frame_viz.enabled:
+            self.frame_viz.set_reference_frame(kps.xy.cpu().numpy(), gray)
 
     def _refine_and_report(self, init: PairInitResult, T1w, T2w, journal_path, mesh_backend):
         cfg = self.cfg
@@ -351,6 +414,23 @@ class SequencePipeline:
         journal.relative(pix1, rel1)
         journal.real_absolute(abs1)
 
+        host = deformable.PairState(*(x.cpu().numpy() for x in result.state))
+        T1h = tuple(x.cpu().numpy() for x in T1w)
+        T2h = tuple(x.cpu().numpy() for x in T2w)
+        if self.map_viz.enabled:
+            v = np.asarray(init.valid, dtype=bool)
+            self.map_viz.update(host.p1[v], host.p2[v], [(R.T, -R.T @ t) for R, t in (T1h, T2h)])
+            self.map_viz.snapshot()
+            self.map_viz.export_ply()
+
+        # Map-layer insertion: dual points per match with observations and
+        # the refined global SE3 (``sequence.py:484-490``).
+        wmap = build_pair_map(
+            T1h, T2h, init.kp1, init.kp2, None, None, init.octave1, init.octave2,
+            init.d1, init.d2, host, init.valid,
+            scale_factor=cfg.scale_factor, n_scales=cfg.n_scales,
+        )
+
         return {
             "init": init,
             "state": result.state,
@@ -359,7 +439,7 @@ class SequencePipeline:
             "final": abs1,
             "initial_pix": pix0,
             "final_pix": pix1,
-            "world_map": None,  # the map layer is ROADMAP item A15
+            "world_map": wmap,
             "rounds": result.rounds,
             "stats": result.stats,
         }

@@ -17,15 +17,17 @@ journal blocks:
 7. the Experiment.txt journal.
 
 Device work is f32 on ``device`` (default ``cuda``; ``device="cpu"`` must be
-asked for). The solution visualisation (``show_scene`` / ``show_solution``,
-``:257-272``; A16) raises ``NotImplementedError``, and the map layer
-(``world_map``, ``:273-281``) is not ported yet; ``SimulationResult.world_map``
-is None.
+asked for). After the refinement, as in JAX (``:257-281``), the headless map
+visualiser writes a PNG snapshot and a PLY of the refined dual points when
+``show_scene`` or ``show_solution`` is set, and the map layer
+(``pipeline/worldmap.py``) builds ``SimulationResult.world_map``; both are
+numpy code that gets host copies of the device tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -40,6 +42,8 @@ from ..ops import triangulation as tri
 from ..precision import FP
 from ..utils import csvio, metrics as metrics_mod
 from ..utils.journal import ExperimentJournal
+from ..viz import MapVisualizer
+from .worldmap import build_pair_map
 
 
 @dataclasses.dataclass
@@ -62,8 +66,6 @@ class SimulationResult:
 
 class SimulationPipeline:
     def __init__(self, cfg: Config, seed: int = 0, mesh_backend: str = "auto", device="cuda"):
-        if cfg.show_scene or cfg.show_solution:
-            raise NotImplementedError("the visualisers (showScene/showSolution) are ROADMAP item A16, not ported yet")
         self.cfg = cfg
         self.seed = seed
         self.mesh_backend = mesh_backend
@@ -219,6 +221,24 @@ class SimulationPipeline:
         journal.relative(pix1, rel1)
         journal.sim_absolute(abs1)
 
+        host = deformable.PairState(*(x.cpu().numpy() for x in result.state))
+        T1h = tuple(x.cpu().numpy() for x in T1w)
+        T2h = tuple(x.cpu().numpy() for x in T2w)
+        # Solution visualisation, headless PNG + PLY (``simulation.py:257-272``).
+        if cfg.show_scene or cfg.show_solution:
+            out_dir = os.path.join(os.path.dirname(os.path.abspath(journal_path or cfg.exp_file_path)), "viz")
+            mviz = MapVisualizer(enabled=True, out_dir=out_dir, draw_rays=cfg.draw_rays)
+            mviz.update(host.p1[valid], host.p2[valid], [(R.T, -R.T @ t) for R, t in (T1h, T2h)])
+            mviz.snapshot()
+            mviz.export_ply()
+
+        # Map-layer insertion: dual points per match, observations, the
+        # refined global SE3 (``simulation.py:274-281``).
+        wmap = build_pair_map(
+            T1h, T2h, kp1, kp2, None, None, None, None, d1, d2, host, valid,
+            scale_factor=cfg.scale_factor, n_scales=cfg.n_scales,
+        )
+
         return SimulationResult(
             state=result.state,
             valid=valid,
@@ -231,6 +251,7 @@ class SimulationPipeline:
             n_matches=len(orig),
             n_map_points=2 * n_valid,
             parallax_deg=parallax,
+            world_map=wmap,
             rigid_accepted=result.rigid_accepted,
             stats=result.stats,
         )
