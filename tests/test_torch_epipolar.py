@@ -19,12 +19,27 @@ the same index sets. Tolerances:
 - k-means labels, inlier masks and counts: equal;
 - the pose-free ``initialize_pair`` with JAX's draws: the same matches,
   triangulated count and validity, parallax within 1e-4 deg.
+
+Run as a script, it prints the spread of the pose-free bootstrap over RANSAC
+draws on the full-width step scene (no poses; camera 2 at the baseline
+(0.08, 0.01, 0) m): JAX's own draw (key 10) and the port's generator seeds
+0-11 on the CPU, each with the rotation's angle from the identity, the
+angle between t21 and the true baseline and |t21| against 0.0806 m, the
+spread behind ``chip_smoke.py``'s ``POSEFREE_*`` limits:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_epipolar.py
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
+import sys
 import tempfile
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -252,3 +267,44 @@ def test_pose_free_initialize_pair_on_card():
     np.testing.assert_array_equal(got.valid, want.valid)
     own = card.initialize_pair(ck[0], ck[1], None, None, frames[0][1], frames[1][1])
     assert own.accepted and rot_err_deg(own.T2w_est[0].cpu().numpy(), np.eye(3)) < 2.0
+
+
+def _pose_errors(R, t, t_true):
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    tdir = np.degrees(np.arccos(np.clip(t @ t_true / (np.linalg.norm(t) * np.linalg.norm(t_true)), -1.0, 1.0)))
+    return rot_err_deg(R, np.eye(3)), float(tdir), float(np.linalg.norm(t))
+
+
+def _main():
+    from triangulation_in_deformable_scenes_torch.harness import step_scene
+    from triangulation_in_deformable_scenes_tpu.config import Config as JConfig
+
+    cfg = step_scene.scene_config(step_scene.FULL, 1, 1, 2)
+    frames = step_scene.step_frames(step_scene.FULL)
+    t_true = -np.asarray(frames[1][2][1], np.float64) + np.asarray(frames[0][2][1], np.float64)
+    print(f"truth: |t21| = {np.linalg.norm(t_true):.5f} m")
+    jpipe = j_seq.SequencePipeline(JConfig(**dataclasses.asdict(cfg)), viz_dir=tempfile.mkdtemp())
+    jk = [jpipe.extract(j_seq.to_grayscale(f[0])) for f in frames]
+    r = jpipe.initialize_pair(jk[0], jk[1], None, None, frames[0][1], frames[1][1])
+    rot, tdir, norm = _pose_errors(*r.T2w_est, t_true)
+    print(f"jax key 10: matches {r.n_matches} map points {r.n_triangulated} R21 {rot:.3f} deg "
+          f"t21 direction {tdir:.2f} deg |t21| {norm:.5f} m")
+    tpipe = t_seq.SequencePipeline(cfg, device="cpu")
+    tk = [tpipe.extract(t_seq.to_grayscale(f[0])) for f in frames]
+    draw = t_epi.initialize_pose_free
+    for seed in range(12):
+        def seeded(*args, **kwargs):
+            return draw(*args[:4], torch.Generator().manual_seed(seed), *args[5:], **kwargs)
+
+        t_epi.initialize_pose_free = seeded
+        try:
+            r = tpipe.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1])
+        finally:
+            t_epi.initialize_pose_free = draw
+        rot, tdir, norm = _pose_errors(*(x.numpy() for x in r.T2w_est), t_true)
+        print(f"port seed {seed}: matches {r.n_matches} map points {r.n_triangulated} R21 {rot:.3f} deg "
+              f"t21 direction {tdir:.2f} deg |t21| {norm:.5f} m")
+
+
+if __name__ == "__main__":
+    _main()

@@ -31,7 +31,24 @@ Tolerances:
   of all keypoints identical, 99.5 % of descriptor bits equal on the shared
   keypoints (resampling differences flip ties of taps in flat regions on the
   upper levels: ~0.3 % measured).
+
+Run as a script, it prints the readings behind PERF.md's stage-0 finding:
+the per-level comparison of ``extract_level`` on JAX's levels of both
+full-width frames (``--before``: with the blur and moment sums the port used
+until it took XLA's orders), and ``--search``: the search that found those
+orders (every summation tree of the seven blur taps with every placement of
+fused multiply-adds against ``jax.jit(blur_patches)``, about 15 minutes; and
+vector-accumulator schemes for the moments against the jitted einsum):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_features.py [--before] [--search]
 """
+
+import itertools
+import os
+import sys
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -237,24 +254,29 @@ def test_orb_descriptors_from_jax_patches():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("frame", [0, 1])
-def test_extract_level_on_jax_levels(frame):
-    """Both packages' ``extract_level`` on JAX's jitted pyramid levels of one
-    full-width step frame (1000 features, 8 scales): keypoints, scores and
-    masks equal on every level, angles within 2 ulp, descriptor bits equal
-    (before the port took XLA's blur and moment orders, 4 / 94 / 66 / 46 /
-    31 / 16 / 8 / 7 rows of frame 1 differed)."""
-    scene = step_scene.FULL
-    cfg = step_scene.scene_config(scene)
-    gray = to_grayscale(step_scene.step_frames(scene)[frame][0]).astype(np.float32)
+def _levels_compared(frame):
+    """JAX's jitted ``extract_level`` and the port's on JAX's jitted pyramid
+    levels of one full-width step frame (1000 features, 8 scales); yields
+    (level, JAX outputs, port outputs) as numpy arrays."""
+    cfg = step_scene.scene_config(step_scene.FULL)
+    gray = to_grayscale(step_scene.step_frames(step_scene.FULL)[frame][0]).astype(np.float32)
     levels = jax.jit(lambda im: JF.build_pyramid(im, cfg.n_scales, cfg.scale_factor))(jnp.asarray(gray))
     masks = JF.generate_masks(jnp.asarray(gray), None, cfg.n_scales)
     budgets = JF.features_per_level(cfg.n_features, cfg.n_scales, cfg.scale_factor)
     level_j = jax.jit(JF.extract_level, static_argnums=(2, 3, 4))
     for lvl, (im, k) in enumerate(zip(levels, budgets)):
         m = np.asarray(JF.resize_linear(masks[lvl].astype(jnp.float32), im.shape) > 0.5)
-        xy_j, s_j, ok_j, ang_j, d_j = (np.asarray(v) for v in level_j(im, jnp.asarray(m), k, 20.0, 7.0))
-        xy_t, s_t, ok_t, ang_t, d_t = (v.numpy() for v in TF.extract_level(t(im), t(m), k, 20.0, 7.0))
+        want = [np.asarray(v) for v in level_j(im, jnp.asarray(m), k, 20.0, 7.0)]
+        got = [v.numpy() for v in TF.extract_level(t(im), t(m), k, 20.0, 7.0)]
+        yield lvl, want, got
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_extract_level_on_jax_levels(frame):
+    """Both packages' ``extract_level`` on JAX's jitted pyramid levels of one
+    full-width step frame: keypoints, scores and masks equal on every level,
+    angles within 2 ulp, descriptor bits equal."""
+    for lvl, (xy_j, s_j, ok_j, ang_j, d_j), (xy_t, s_t, ok_t, ang_t, d_t) in _levels_compared(frame):
         np.testing.assert_array_equal(xy_t, xy_j, err_msg=f"level {lvl}")
         np.testing.assert_array_equal(s_t, s_j)
         np.testing.assert_array_equal(ok_t, ok_j)
@@ -317,3 +339,171 @@ def test_extract_matches_jax_on_the_step_scene():
     shared = same & kj["valid"]
     assert shared.sum() > 400
     assert (kt["desc"][shared] == kj["desc"][shared]).mean() >= 0.995
+
+
+# --------------------------------------------------------------- script mode
+
+
+def _before_blur(x, ksize=7, sigma=2.0):
+    """The blur the port used before it took XLA's order: seven shifted
+    slices summed in tap order, rows then columns."""
+    k = TF._gauss(ksize, sigma, x.dtype, x.device)
+    w, h = x.shape[-1] - (ksize - 1), x.shape[-2] - (ksize - 1)
+    rows = k[0] * x[..., :, 0:w]
+    for i in range(1, ksize):
+        rows = rows + k[i] * x[..., :, i : i + w]
+    out = k[0] * rows[..., 0:h, :]
+    for i in range(1, ksize):
+        out = out + k[i] * rows[..., i : i + h, :]
+    return out
+
+
+def _before_angle(patch, valid):
+    """The angle the port used before: torch's own moment sums."""
+    u = torch.arange(-TF.HALF_PATCH, TF.HALF_PATCH + 1, dtype=patch.dtype)
+    cm = torch.as_tensor(TF._CMASK, dtype=patch.dtype)
+    m10 = (patch * (u[None, :] * cm)).sum(dim=(1, 2))
+    m01 = (patch * (u[:, None] * cm)).sum(dim=(1, 2))
+    ang = torch.atan2(m01, m10) * (180.0 / np.pi)
+    ang = torch.where(ang < 0, ang + 360.0, ang)
+    return torch.where(valid, ang, torch.zeros_like(ang))
+
+
+def _print_levels(before):
+    with pytest.MonkeyPatch.context() as mp:
+        if before:
+            mp.setattr(TF, "_blur_valid", _before_blur)
+            mp.setattr(TF, "ic_angle_from_patches", _before_angle)
+        for frame in (0, 1):
+            for lvl, want, got in _levels_compared(frame):
+                print(f"frame {frame} level {lvl}: keypoints equal {np.array_equal(want[0], got[0])}, "
+                      f"max angle ulp {_ulps(got[3], want[3]).max():.0f}, "
+                      f"descriptor rows differing {int((want[4] != got[4]).any(1).sum())} of {len(want[4])}")
+
+
+def _trees(labels):
+    if len(labels) == 1:
+        yield labels[0]
+        return
+    first, rest = labels[0], labels[1:]
+    for size in range(len(rest)):
+        for comb in itertools.combinations(rest, size):
+            for lt in _trees((first,) + comb):
+                for rt in _trees(tuple(x for x in rest if x not in comb)):
+                    yield (lt, rt)
+
+
+def _blur_order_search(n_samples=40000):
+    """Every binary summation tree of the seven row-pass taps, each node a
+    rounded add or a fused multiply-add of a leaf, against XLA's 1 x 7 VALID
+    convolution on piecewise-flat rows; prints the best variants."""
+    rng = np.random.default_rng(0)
+    k = TF._gauss(7, 2.0, torch.float32, "cpu").numpy()
+    vals = rng.integers(0, 256, size=(200, 43, 43)).astype(np.float32)
+    keep = rng.random((200, 43, 43)) < 0.3
+    keep[:, :, 0] = True
+    P = np.where(keep, vals, np.nan)
+    for c in range(1, 43):  # runs of equal values, as on flat rectangles
+        P[:, :, c] = np.where(np.isnan(P[:, :, c]), P[:, :, c - 1], P[:, :, c])
+    P = P.astype(np.float32)
+    ref = np.asarray(jax.jit(lambda p: jax.lax.conv_general_dilated(
+        p[:, None], jnp.asarray(k).reshape(1, 1, 1, 7), (1, 1), "VALID")[:, 0])(jnp.asarray(P))).reshape(-1)
+    X = np.stack([P[:, :, i : i + 37] for i in range(7)], -1).reshape(-1, 7)
+    idx = rng.permutation(len(ref))[:n_samples]
+    X, ref = X[idx], ref[idx]
+    prod = [(X[:, i] * k[i]).astype(np.float32) for i in range(7)]
+
+    def fma(i, acc):
+        return (X[:, i].astype(np.float64) * np.float64(k[i]) + acc).astype(np.float32)
+
+    def value(tree, choice):
+        if isinstance(tree, int):
+            return prod[tree]
+        a, b = tree
+        c = choice.get(id(tree), "add")
+        if c == "fa":
+            return fma(a, value(b, choice))
+        if c == "fb":
+            return fma(b, value(a, choice))
+        return (value(a, choice) + value(b, choice)).astype(np.float32)
+
+    def nodes(tree):
+        return [] if isinstance(tree, int) else [tree] + nodes(tree[0]) + nodes(tree[1])
+
+    results = []
+    for tree in _trees(tuple(range(7))):
+        ns = nodes(tree)
+        opts = [["add"] + (["fa"] if isinstance(n[0], int) else []) + (["fb"] if isinstance(n[1], int) else [])
+                for n in ns]
+        for combo in itertools.product(*opts):
+            bad = int((value(tree, {id(n): c for n, c in zip(ns, combo)}) != ref).sum())
+            results.append((bad, repr(tree), combo))
+    results.sort(key=lambda r: r[0])
+    print(f"blur: {len(results)} variants against {n_samples} outputs; best:")
+    for r in results[:4]:
+        print("  ", r)
+
+
+def _moment_order_search():
+    """Vector-accumulator schemes for the angle moments (flattening, vector
+    width, accumulators, FMA or not, lane reduction) against the jitted
+    einsums of JAX's ``ic_angle_from_patches`` on step-scene patches."""
+    P = _jax_patches(level=2)[0][:, JF.DESC_R - JF.HALF_PATCH : -(JF.DESC_R - JF.HALF_PATCH),
+                                 JF.DESC_R - JF.HALF_PATCH : -(JF.DESC_R - JF.HALF_PATCH)]
+
+    @jax.jit
+    def moments(p):
+        u = jnp.arange(-JF.HALF_PATCH, JF.HALF_PATCH + 1, dtype=p.dtype)
+        c = jnp.asarray(JF._CMASK, dtype=p.dtype)
+        return jnp.einsum("nvu,u,vu->n", p, u, c), jnp.einsum("nvu,v,vu->n", p, u, c)
+
+    ref = [np.asarray(m) for m in moments(jnp.asarray(P))]
+    u = np.arange(-JF.HALF_PATCH, JF.HALF_PATCH + 1, dtype=np.float32)
+    weights = [u[None, :] * JF._CMASK, u[:, None] * JF._CMASK]
+    results = []
+    for order, vw, nacc, use_fma, red in itertools.product(("vu", "uv"), (4, 8, 16), (1, 2, 4), (0, 1),
+                                                           ("halve", "pairs", "serial")):
+        bad = 0
+        for w, want in zip(weights, ref):
+            X = (P if order == "vu" else P.transpose(0, 2, 1)).reshape(len(P), -1).astype(np.float64)
+            wf = (w if order == "vu" else w.T).reshape(-1).astype(np.float64)
+            step = vw * nacc
+            main = (X.shape[1] // step) * step
+            acc = np.zeros((len(P), step), np.float32)
+            for c in range(0, main, step):
+                p = X[:, c : c + step] * wf[c : c + step]
+                acc = (p + acc).astype(np.float32) if use_fma else (acc + p.astype(np.float32)).astype(np.float32)
+            v = acc[:, :vw]
+            for a in range(1, nacc):
+                v = (v + acc[:, a * vw : (a + 1) * vw]).astype(np.float32)
+            while v.shape[1] > 1:
+                if red == "halve":
+                    v = (v[:, : v.shape[1] // 2] + v[:, v.shape[1] // 2 :]).astype(np.float32)
+                elif red == "pairs":
+                    v = (v[:, 0::2] + v[:, 1::2]).astype(np.float32)
+                else:
+                    v = np.cumsum(v, axis=1, dtype=np.float32)[:, -1:]
+            s = v[:, 0]
+            for c in range(main, X.shape[1]):
+                s = (X[:, c] * wf[c] + s).astype(np.float32) if use_fma else (
+                    s + (X[:, c] * wf[c]).astype(np.float32)).astype(np.float32)
+            bad += int((s != want).sum())
+        results.append((bad, order, vw, nacc, use_fma, red))
+    results.sort(key=lambda r: r[0])
+    print(f"moments: {len(results)} schemes against {2 * len(P)} sums; best "
+          "(differing, flattening, vector width, accumulators, fma, lane reduction):")
+    for r in results[:4]:
+        print("  ", r)
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Stage-0 readings: extract_level on JAX's levels; the order search")
+    ap.add_argument("--before", action="store_true", help="with the blur and moment sums used before")
+    ap.add_argument("--search", action="store_true", help="run the summation-order searches")
+    args = ap.parse_args()
+    _print_levels(args.before)
+    if args.search:
+        _moment_order_search()
+        _blur_order_search()
