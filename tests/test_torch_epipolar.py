@@ -199,7 +199,13 @@ def test_ransac_with_its_own_generator_recovers_the_pose():
     assert torch.equal(R, R2) and torch.equal(tt, t2) and torch.equal(inl, inl2)
 
 
-def test_pose_free_initialize_pair_matches_jax():
+def _with_draws(monkeypatch, init_idx, sample_idx):
+    """Make the port's pose-free bootstrap use these RANSAC draws."""
+    monkeypatch.setattr(t_epi, "initialize_pose_free",
+                        functools.partial(t_epi.initialize_pose_free, init_idx=init_idx, sample_idx=sample_idx))
+
+
+def test_pose_free_initialize_pair_matches_jax(monkeypatch):
     """The 320 x 320 step scene's JAX keypoints, no poses: JAX's pipeline with
     its key 10 and the port handed the same draws."""
     frames, cfg, kps = _small_pair()
@@ -211,8 +217,9 @@ def test_pose_free_initialize_pair_matches_jax():
     init_idx, idx, _ = _draws(want.kp1, 10)
     tpipe = t_seq.SequencePipeline(cfg, device="cpu")
     tk = [convert.keypoints_from_numpy(kp, device="cpu") for kp in kps]
-    got = tpipe.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1],
-                                ransac_draws=(init_idx, idx))
+    with monkeypatch.context() as m:
+        _with_draws(m, init_idx, idx)
+        got = tpipe.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1])
     assert got.accepted
     assert got.n_matches == want.n_matches
     np.testing.assert_array_equal(got.kp1, want.kp1)
@@ -248,7 +255,7 @@ def test_ransac_on_card_with_jax_draws():
 
 
 @pytest.mark.cuda
-def test_pose_free_initialize_pair_on_card():
+def test_pose_free_initialize_pair_on_card(monkeypatch):
     """The pose-free branch on the card with JAX's draws: the CPU's matches,
     count and validity; its own draws: a pose within 2 degrees."""
     if not torch.cuda.is_available():
@@ -260,9 +267,12 @@ def test_pose_free_initialize_pair_on_card():
     ck = [convert.keypoints_from_numpy(kp, device="cuda") for kp in kps]
     want = cpu.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1])
     init_idx, idx, _ = _draws(want.kp1, 10)
-    want = cpu.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1], ransac_draws=(init_idx, idx))
-    got = card.initialize_pair(ck[0], ck[1], None, None, frames[0][1], frames[1][1],
-                               ransac_draws=(init_idx.cuda(), idx.cuda()))
+    with monkeypatch.context() as m:
+        _with_draws(m, init_idx, idx)
+        want = cpu.initialize_pair(tk[0], tk[1], None, None, frames[0][1], frames[1][1])
+    with monkeypatch.context() as m:
+        _with_draws(m, init_idx.cuda(), idx.cuda())
+        got = card.initialize_pair(ck[0], ck[1], None, None, frames[0][1], frames[1][1])
     assert got.n_matches == want.n_matches and got.n_triangulated == want.n_triangulated
     np.testing.assert_array_equal(got.valid, want.valid)
     own = card.initialize_pair(ck[0], ck[1], None, None, frames[0][1], frames[1][1])

@@ -341,20 +341,22 @@ def _xla_gemv(x, w):
     column by one more fused multiply-add. A fused multiply-add is an f64
     product and sum rounded once to f32 (exact here: an f32 value times a
     small integer fits in f64, and the sum is exact unless the product lies
-    far below half an ulp of the sum), so both devices round as XLA does."""
+    far below half an ulp of the sum), so both devices round as XLA does.
+    Each step is one launch: the f32 operand promoted exactly, the sum taken
+    in f64 and rounded once into an f32 output."""
     n, m = x.shape
     main = (m // 32) * 32
     prod = x[:, None, :].double() * w[None].double()  # exact products [N, K, M]
     acc = torch.zeros(n, w.shape[0], 32, dtype=x.dtype, device=x.device)
     for c in range(0, main, 32):
-        acc = (prod[..., c : c + 32] + acc.double()).to(x.dtype)
+        acc = torch.add(prod[..., c : c + 32], acc, out=torch.empty_like(acc))
     v = ((acc[..., 0:8] + acc[..., 8:16]) + acc[..., 16:24]) + acc[..., 24:32]
     while v.shape[-1] > 1:
         h = v.shape[-1] // 2
         v = v[..., :h] + v[..., h:]
     s = v[..., 0]
     for c in range(main, m):
-        s = (prod[..., c] + s.double()).to(x.dtype)
+        s = torch.add(prod[..., c], s, out=torch.empty_like(s))
     return s
 
 

@@ -139,12 +139,10 @@ class SequencePipeline:
         T2w,
         depth_ref: np.ndarray,
         depth_cur: np.ndarray,
-        ransac_draws: Optional[tuple] = None,
     ) -> PairInitResult:
         """Match, triangulate and gate one frame pair. With ``T2w`` None the
         pose comes from the pose-free bootstrap, whose RANSAC draws come
-        from a generator seeded with 10 on the pipeline's device, or from
-        ``ransac_draws`` = (init_idx [8], sample_idx [17, 8]) when given
+        from a generator seeded with 10 on the pipeline's device
         (``ops/epipolar.py``)."""
         cfg = self.cfg
         matches, n_matches = match_ops.search_for_initialization(
@@ -189,11 +187,10 @@ class SequencePipeline:
             # A zero Epipolar.th (unset in some yamls) would zero the
             # consensus: 0.01 rad then, as in JAX.
             epi_th = float(cfg.epipolar_th) if cfg.epipolar_th > 0 else 0.01
-            init_idx, sample_idx = ransac_draws if ransac_draws is not None else (None, None)
             gen = torch.Generator(device=self.device).manual_seed(10)
             R21, t21, inl, _ = epi_ops.initialize_pose_free(
                 self._t(kp1), xn1, xn2, torch.ones(len(kp1), dtype=torch.bool, device=self.device), gen,
-                epipolar_th=epi_th, init_idx=init_idx, sample_idx=sample_idx,
+                epipolar_th=epi_th,
             )
             # |t| = median(d / z_prov) over a unit-baseline triangulation,
             # when at least 8 points qualify.
