@@ -5,7 +5,10 @@ and its state. These helpers take the fields of the JAX package's
 ``PairData``/``PairState``/``Hyper`` (``models/deformable.py:129-184``) as
 numpy arrays (a NamedTuple, its ``_asdict()`` or any mapping) and return the
 port's tuples on ``device``, so both packages compute from identical inputs.
-Index fields become int64, masks bool, everything else f32.
+Index fields become int64, masks bool, everything else f32; a leading pair
+axis (the stacked batch that ``solve_pairs`` takes) carries over as it is.
+``ba_data_from_numpy``/``ba_state_from_numpy`` do the same for bundle
+adjustment's ``BAData``/``BAState`` (``models/bundle_adjustment.py:38-53``).
 ``keypoints_from_numpy`` does the same for the front end's ``Keypoints``
 (``ops/features.py:244-251``): octaves int32, descriptors uint8 0/1 bits.
 """
@@ -15,12 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.bundle_adjustment import BAData, BAState
 from .models.deformable import Hyper, PairData, PairState
 from .ops.features import Keypoints
 from .precision import FP
 
-_INDEX_FIELDS = {"nbr"}
-_BOOL_FIELDS = {"valid", "nbr_mask"}
+_INDEX_FIELDS = {"nbr", "obs_kf", "obs_mp"}
+_BOOL_FIELDS = {"valid", "nbr_mask", "obs_valid", "fixed_pose"}
 
 
 def _fields(src) -> dict:
@@ -56,6 +60,14 @@ def pair_state_from_numpy(src, device="cuda") -> PairState:
 
 def hyper_from_numpy(src, device="cuda") -> Hyper:
     return _convert(Hyper, src, torch.device(device))
+
+
+def ba_data_from_numpy(src, device="cuda") -> BAData:
+    return _convert(BAData, src, torch.device(device))
+
+
+def ba_state_from_numpy(src, device="cuda") -> BAState:
+    return _convert(BAState, src, torch.device(device))
 
 
 def keypoints_from_numpy(src, device="cuda") -> Keypoints:

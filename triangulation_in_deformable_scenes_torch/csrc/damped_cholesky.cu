@@ -51,7 +51,8 @@
 //     both panel tiles staged in padded shared memory by cp.async, the next
 //     job's while this one computes, each thread a 2x2 register micro-tile
 //     from 16-byte shared-memory reads.
-//   * the triangular solves in block 0 (the others wait at the next sync),
+//   * the triangular solves in one block (block 0; the others wait at the
+//     next sync),
 //     right-looking over 32-row blocks with the right-hand side in shared
 //     memory: row block k of the workspace holds L[k, 0:k] left of the
 //     diagonal and L[k+1:, k]^T right of it, so the forward solve reads the
@@ -62,6 +63,21 @@
 //   * x0 = s L^-T y (block 0); the refinement residual (-g - A x0) s, one
 //     warp per row over all blocks, between two grid.sync(); then the second
 //     forward and backward solves.
+//   * a batch of B systems of one dim (tids_damped_solve_batched; the JAX
+//     package vmaps the contract over the serving path's pairs,
+//     models/deformable.py:884 there) is ONE launch of the same phases: the
+//     batch is the outer index of every job (rows, tiles, column and
+//     trailing jobs are numbered over (system, tile)), the grid is one block
+//     per lower tile of the batch up to the co-resident maximum, the
+//     triangular solves of system k run in block k mod G, and each system
+//     has its own workspace. No job overwrites a tile that another job of
+//     its phase reads (the diagonal tile keeps A_cc), so a batch whose
+//     column jobs outnumber the blocks runs them in rounds safely. Each
+//     tile job rounds as in the single launch,
+//     which is B = 1, so every member's x is the single launch's bit for
+//     bit. Single launches of B systems queue one behind another (each
+//     takes the whole co-resident grid from dim 728 up); the batch fills
+//     one panel chain with B times the work instead.
 // Every block reaches every grid.sync(): there is no data-dependent exit, so
 // a NaN pivot gives NaN output and no hang. No atomics, every sum in a fixed
 // order: repeated calls give bit-identical output. f32 FMA only, no tensor
@@ -95,20 +111,43 @@ constexpr int FACTOR_FLOATS = 7 * TILE + T * T;  // P0 Q0 P1 Q1 Tb Lr Inv, LsT
 constexpr float TINY = 1e-30f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// B systems of one dim n; system k's arrays start at k times the stride of
+// each (the vectors s, b, y, x0 at k * vstride).
 struct Args {
-  const float* H;   // [n, n]
-  const float* g;   // [n]
-  const float* lam; // [1]
-  float* x;         // [n] out
-  float* L;         // [npad, npad] workspace: lower tiles L, upper tiles L^T
-  float* Linv;      // [NB, T, T] inverses of the diagonal tiles
+  const float* H;   // [B, n, n]
+  const float* g;   // [B, n]
+  const float* lam; // [B]
+  float* x;         // [B, n] out
+  float* L;         // [B, npad, npad] workspace: lower tiles L, upper tiles L^T (not the diagonal tiles)
+  float* Linv;      // [B, NB, T, T] inverses of the diagonal tiles
   float* s;         // [npad] scales
   float* b;         // [npad] right-hand side
   float* y;         // [npad] last forward solve
   float* x0;        // [npad] unrefined solution
   unsigned long long* stamps;  // [6] phase ends (globaltimer ns), or null
-  int n, npad, NB;
+  int n, npad, NB, B;
+  long long vstride;
 };
+
+// System k of the batch: its arrays and its damping.
+struct Sys {
+  const float* H;
+  const float* g;
+  float lam;
+  float* x;
+  float* L;
+  float* Linv;
+  float* s;
+  float* b;
+  float* y;
+  float* x0;
+};
+
+__device__ __forceinline__ Sys system_of(const Args& a, int k) {
+  const size_t nn = (size_t)a.n * a.n, pp = (size_t)a.npad * a.npad, v = (size_t)k * (size_t)a.vstride;
+  return Sys{a.H + k * nn, a.g + (size_t)k * a.n, a.lam[k], a.x + (size_t)k * a.n, a.L + k * pp,
+             a.Linv + (size_t)k * a.npad * T, a.s + v, a.b + v, a.y + v, a.x0 + v};
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -270,8 +309,8 @@ __device__ __forceinline__ float dot_strip4(const float (&v)[T], const float* vk
 // row block k holds L[k+1:, k]^T right of the diagonal (forward) and
 // L[k, 0:k] left of it (backward).
 template <bool FWD>
-__device__ void substitute(const Args& a, float* ys, float* lbuf, float* vk) {
-  const int tid = threadIdx.x, npad = a.npad, NB = a.NB;
+__device__ void substitute(const Sys& a, int npad, int NB, float* ys, float* lbuf, float* vk) {
+  const int tid = threadIdx.x;
   const int first = FWD ? 0 : NB - 1;
   stage_tile(lbuf + (first & 1) * TILE, a.Linv + (size_t)first * T * T, T);
   cp_async_commit();
@@ -331,39 +370,44 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   __shared__ __align__(16) float vk[T];
   __shared__ float bc[T], yc[T];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = gridDim.x, n = a.n, npad = a.npad, NB = a.NB;
-  const float lam = a.lam[0];
+  const int G = gridDim.x, n = a.n, npad = a.npad, NB = a.NB, B = a.B;
+  const int ntri = NB * (NB + 1) / 2;
   const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && tid == 0;
   if (stamp) a.stamps[0] = now_ns();
 
   // ---- set-up: s, b = -g s, lower tiles of s (H + lam I) s ------------------
-  for (int i = blockIdx.x * THREADS + tid; i < npad; i += G * THREADS) {
+  // Jobs run over (system, row) and (system, tile) of the whole batch.
+  for (int e = blockIdx.x * THREADS + tid; e < B * npad; e += G * THREADS) {
+    const int k = e / npad, i = e - k * npad;
+    const Sys S = system_of(a, k);
     if (i < n) {
-      const float si = rsqrtf(fmaxf(__ldcs(a.H + (size_t)i * n + i) + lam, TINY));
-      a.s[i] = si;
-      a.b[i] = -a.g[i] * si;
+      const float si = rsqrtf(fmaxf(__ldcs(S.H + (size_t)i * n + i) + S.lam, TINY));
+      S.s[i] = si;
+      S.b[i] = -S.g[i] * si;
     } else {
-      a.s[i] = 1.0f;
-      a.b[i] = 0.0f;
+      S.s[i] = 1.0f;
+      S.b[i] = 0.0f;
     }
   }
-  for (int t = blockIdx.x; t < NB * (NB + 1) / 2; t += G) {
+  for (int u = blockIdx.x; u < B * ntri; u += G) {
+    const int k = u / ntri;
+    const Sys S = system_of(a, k);
     int bi, bj;
-    tri_index(t, bi, bj);
+    tri_index(u - k * ntri, bi, bj);
     if (tid < 2 * T) {
       const int idx = (tid < T ? bi : bj) * T + (tid & (T - 1));
-      sc[tid] = idx < n ? rsqrtf(fmaxf(__ldcs(a.H + (size_t)idx * n + idx) + lam, TINY)) : 1.0f;
+      sc[tid] = idx < n ? rsqrtf(fmaxf(__ldcs(S.H + (size_t)idx * n + idx) + S.lam, TINY)) : 1.0f;
     }
     __syncthreads();
     for (int e = tid; e < T * T; e += THREADS) {
       const int r = e / T, c = e % T, i = bi * T + r, j = bj * T + c;
       float v;
       if (i < n && j < n) {
-        v = ((__ldcs(a.H + (size_t)i * n + j) + (i == j ? lam : 0.0f)) * sc[r]) * sc[T + c];
+        v = ((__ldcs(S.H + (size_t)i * n + j) + (i == j ? S.lam : 0.0f)) * sc[r]) * sc[T + c];
       } else {
         v = (i == j) ? 1.0f : 0.0f;
       }
-      a.L[(size_t)i * npad + j] = v;
+      S.L[(size_t)i * npad + j] = v;
     }
     __syncthreads();
   }
@@ -371,10 +415,11 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   if (stamp) a.stamps[1] = now_ns();
 
   // ---- blocked Cholesky with lookahead, and y = L^-1 b alongside -----------
-  // Phase c (one grid.sync each): the blocks of column c apply panel c-1 to
-  // their tile and to the diagonal tile (c, c), factor and invert that, and
-  // form their panel tile L_ic and b_i -= L_ic y_c; the other blocks apply
-  // panel c-1 to the trailing tiles (i, j), c < j <= i.
+  // Phase c (one grid.sync each, for the whole batch): the blocks of column
+  // c of every system apply panel c-1 to their tile and to the diagonal
+  // tile (c, c), factor and invert that, and form their panel tile L_ic and
+  // b_i -= L_ic y_c; the other blocks apply panel c-1 to the trailing tiles
+  // (i, j), c < j <= i, of every system.
   float* const P0 = smem;
   float* const Q0 = smem + TILE;
   float* const P1 = smem + 2 * TILE;
@@ -386,33 +431,36 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   const int ty = thread_row(), tx = thread_col();
   for (int c = 0; c < NB; ++c) {
     const size_t cc = (size_t)c * T, kk = cc - T;  // kk: column of panel c-1
-    const int ncol = NB - c;                       // column jobs: tiles (c + t, c)
-    for (int t = blockIdx.x; t < ncol; t += G) {
+    const int ncol = NB - c;                       // column jobs of a system: tiles (c + t, c)
+    const int ncols = B * ncol;
+    for (int u = blockIdx.x; u < ncols; u += G) {
+      const int k = u / ncol, t = u - k * ncol;
+      const Sys S = system_of(a, k);
       const size_t i0 = cc + (size_t)t * T;
       // P0 = L_{c,c-1}, Q0 = L_{i,c-1}, Q1 = A_cc, P1 = A_ic
       if (c > 0) {
-        stage_tile(P0, a.L + cc * npad + kk, npad);
-        if (t > 0) stage_tile(Q0, a.L + i0 * npad + kk, npad);
+        stage_tile(P0, S.L + cc * npad + kk, npad);
+        if (t > 0) stage_tile(Q0, S.L + i0 * npad + kk, npad);
       }
-      stage_tile(Q1, a.L + cc * npad + cc, npad);
-      if (t > 0) stage_tile(P1, a.L + i0 * npad + cc, npad);
+      stage_tile(Q1, S.L + cc * npad + cc, npad);
+      if (t > 0) stage_tile(P1, S.L + i0 * npad + cc, npad);
       cp_async_commit();
-      if (tid < T) bc[tid] = __ldcg(a.b + cc + tid);
+      if (tid < T) bc[tid] = __ldcg(S.b + cc + tid);
       cp_async_wait<0>();
       __syncthreads();
       if (c > 0) {
         float acc[2][2];
         tile_dot(P0, P0, acc);
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) Q1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
+          for (int v = 0; v < 2; ++v) Q1[(ty + 16 * p) * TS + tx + 16 * v] -= acc[p][v];
         if (t > 0) {
           tile_dot(Q0, P0, acc);
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
+          for (int p = 0; p < 2; ++p)
 #pragma unroll
-            for (int v = 0; v < 2; ++v) P1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
+            for (int v = 0; v < 2; ++v) P1[(ty + 16 * p) * TS + tx + 16 * v] -= acc[p][v];
         }
         __syncthreads();
       }
@@ -441,75 +489,81 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
       }
       __syncthreads();
       if (t == 0) {
-        for (int e = tid; e < T * T; e += THREADS) {
-          const int r = e / T, q = e % T;
-          a.L[(cc + r) * npad + cc + q] = Lr[r * TS + q];
-          a.Linv[cc * T + e] = Inv[r * TS + q];
-        }
-        if (tid < T) a.y[cc + tid] = yc[tid];
+        // Only Linv_c leaves the block: the diagonal tile keeps A_cc, which
+        // the other column jobs of this system read in this phase (in a
+        // batch with more column jobs than blocks, some of them after this
+        // one); no later phase and no solve reads L_cc.
+        for (int e = tid; e < T * T; e += THREADS) S.Linv[cc * T + e] = Inv[(e / T) * TS + e % T];
+        if (tid < T) S.y[cc + tid] = yc[tid];
       } else {
         float acc[2][2];
         tile_dot(P1, Inv, acc);  // L_ic[r][q] = sum_m A_ic[r][m] Linv_c[q][m]
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int p = 0; p < 2; ++p) {
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
-            a.L[(i0 + ty + 16 * u) * npad + cc + tx + 16 * v] = acc[u][v];
-            Tb[(tx + 16 * v) * TS + ty + 16 * u] = acc[u][v];
+            S.L[(i0 + ty + 16 * p) * npad + cc + tx + 16 * v] = acc[p][v];
+            Tb[(tx + 16 * v) * TS + ty + 16 * p] = acc[p][v];
           }
         }
         __syncthreads();
         // L_ic^T into the upper tile (c, i), 16 bytes per thread.
         const int r = tid >> 3, q = tid & 7;
-        *reinterpret_cast<float4*>(a.L + (cc + r) * npad + i0 + 4 * q) =
+        *reinterpret_cast<float4*>(S.L + (cc + r) * npad + i0 + 4 * q) =
             *reinterpret_cast<const float4*>(Tb + r * TS + 4 * q);
         if (tid < T) {  // b_i -= L_ic y_c
           float li[T];
 #pragma unroll
           for (int m = 0; m < T; ++m) li[m] = Tb[m * TS + tid];
-          a.b[i0 + tid] = __ldcg(a.b + i0 + tid) - dot_strip4(li, yc);
+          S.b[i0 + tid] = __ldcg(S.b + i0 + tid) - dot_strip4(li, yc);
         }
       }
       __syncthreads();
     }
 
-    // Trailing tiles (c+1+i, c+1+j), j <= i, by the blocks without a column
-    // job (all blocks if the grid is smaller than the column).
+    // Trailing tiles (c+1+i, c+1+j), j <= i, of every system, by the blocks
+    // without a column job (all blocks if the grid is smaller than the
+    // batch's column jobs).
     const int mm = NB - 1 - c;
     const int nu = c > 0 ? mm * (mm + 1) / 2 : 0;
-    const int stride = G > ncol ? G - ncol : G;
-    int t = G > ncol ? (int)blockIdx.x - ncol : (int)blockIdx.x;
-    if (t >= 0 && t < nu) {
+    const int njobs = B * nu;
+    const int stride = G > ncols ? G - ncols : G;
+    int u = G > ncols ? (int)blockIdx.x - ncols : (int)blockIdx.x;
+    if (u >= 0 && u < njobs) {
       auto stage_job = [&](int job, float* P, float* Q) {
-        if (job < nu) {
+        if (job < njobs) {
+          const int k = job / nu;
+          const float* Lk = a.L + (size_t)k * npad * npad;
           int i, j;
-          tri_index(job, i, j);
-          stage_tile(P, a.L + (cc + (size_t)(i + 1) * T) * npad + kk, npad);
-          if (i != j) stage_tile(Q, a.L + (cc + (size_t)(j + 1) * T) * npad + kk, npad);
+          tri_index(job - k * nu, i, j);
+          stage_tile(P, Lk + (cc + (size_t)(i + 1) * T) * npad + kk, npad);
+          if (i != j) stage_tile(Q, Lk + (cc + (size_t)(j + 1) * T) * npad + kk, npad);
         }
         cp_async_commit();
       };
-      stage_job(t, P0, Q0);
-      for (int st = 0; t < nu; t += stride, st ^= 1) {
+      stage_job(u, P0, Q0);
+      for (int st = 0; u < njobs; u += stride, st ^= 1) {
         float* const P = st ? P1 : P0;
         float* const Q = st ? Q1 : Q0;
-        stage_job(t + stride, st ? P0 : P1, st ? Q0 : Q1);
+        stage_job(u + stride, st ? P0 : P1, st ? Q0 : Q1);
+        const int k = u / nu;
         int i, j;
-        tri_index(t, i, j);
-        float* const out = a.L + (cc + (size_t)(i + 1) * T) * npad + cc + (size_t)(j + 1) * T;
+        tri_index(u - k * nu, i, j);
+        float* const out =
+            a.L + (size_t)k * npad * npad + (cc + (size_t)(i + 1) * T) * npad + cc + (size_t)(j + 1) * T;
         float o[2][2];
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) o[u][v] = __ldcg(out + (size_t)(ty + 16 * u) * npad + tx + 16 * v);
+          for (int v = 0; v < 2; ++v) o[p][v] = __ldcg(out + (size_t)(ty + 16 * p) * npad + tx + 16 * v);
         cp_async_wait<1>();
         __syncthreads();
         float acc[2][2];
         tile_dot(P, i == j ? P : Q, acc);
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * u) * npad + tx + 16 * v] = o[u][v] - acc[u][v];
+          for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * p) * npad + tx + 16 * v] = o[p][v] - acc[p][v];
         __syncthreads();
       }
       cp_async_wait<0>();
@@ -518,43 +572,49 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
   }
   if (stamp) a.stamps[2] = now_ns();
 
-  // ---- x0 = s L^-T y (block 0) ---------------------------------------------
+  // ---- x0 = s L^-T y (system k in block k mod G) ----------------------------
   float* const ys = smem;
   float* const lbuf = smem + npad;
-  if (blockIdx.x == 0) {
-    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.y + i);
+  for (int k = blockIdx.x; k < B; k += G) {
+    const Sys S = system_of(a, k);
+    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(S.y + i);
     __syncthreads();
-    substitute<false>(a, ys, lbuf, vk);
-    for (int i = tid; i < npad; i += THREADS) a.x0[i] = __ldcg(a.s + i) * ys[i];
+    substitute<false>(S, npad, NB, ys, lbuf, vk);
+    for (int i = tid; i < npad; i += THREADS) S.x0[i] = __ldcg(S.s + i) * ys[i];
+    __syncthreads();
   }
   grid.sync();
   if (stamp) a.stamps[3] = now_ns();
 
-  // ---- b = (-g - (H + lam I) x0) s, one warp per row -------------------------
-  for (int row = blockIdx.x * (THREADS / 32) + warp; row < npad; row += G * (THREADS / 32)) {
+  // ---- b = (-g - (H + lam I) x0) s, one warp per row of the batch ------------
+  for (int e = blockIdx.x * (THREADS / 32) + warp; e < B * npad; e += G * (THREADS / 32)) {
+    const int k = e / npad, row = e - k * npad;
+    const Sys S = system_of(a, k);
     if (row >= n) {
-      if (lane == 0) a.b[row] = 0.0f;
+      if (lane == 0) S.b[row] = 0.0f;
       continue;
     }
-    const float* h = a.H + (size_t)row * n;
+    const float* h = S.H + (size_t)row * n;
     float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc += __ldcs(h + j) * __ldcg(a.x0 + j);
+    for (int j = lane; j < n; j += 32) acc += __ldcs(h + j) * __ldcg(S.x0 + j);
     acc = warp_sum(acc);
-    if (lane == 0) a.b[row] = (-a.g[row] - (acc + lam * __ldcg(a.x0 + row))) * __ldcg(a.s + row);
+    if (lane == 0) S.b[row] = (-S.g[row] - (acc + S.lam * __ldcg(S.x0 + row))) * __ldcg(S.s + row);
   }
   grid.sync();
   if (stamp) a.stamps[4] = now_ns();
 
-  // ---- x = x0 + s L^-T L^-1 b (block 0) --------------------------------------
-  if (blockIdx.x == 0) {
-    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(a.b + i);
+  // ---- x = x0 + s L^-T L^-1 b (system k in block k mod G) --------------------
+  for (int k = blockIdx.x; k < B; k += G) {
+    const Sys S = system_of(a, k);
+    for (int i = tid; i < npad; i += THREADS) ys[i] = __ldcg(S.b + i);
     __syncthreads();
-    substitute<true>(a, ys, lbuf, vk);
-    for (int i = tid; i < npad; i += THREADS) a.y[i] = ys[i];
-    substitute<false>(a, ys, lbuf, vk);
-    for (int i = tid; i < n; i += THREADS) a.x[i] = __ldcg(a.x0 + i) + __ldcg(a.s + i) * ys[i];
-    if (stamp) a.stamps[5] = now_ns();
+    substitute<true>(S, npad, NB, ys, lbuf, vk);
+    for (int i = tid; i < npad; i += THREADS) S.y[i] = ys[i];
+    substitute<false>(S, npad, NB, ys, lbuf, vk);
+    for (int i = tid; i < n; i += THREADS) S.x[i] = __ldcg(S.x0 + i) + __ldcg(S.s + i) * ys[i];
+    __syncthreads();
   }
+  if (stamp) a.stamps[5] = now_ns();
 }
 
 size_t smem_bytes(int npad) {
@@ -562,8 +622,10 @@ size_t smem_bytes(int npad) {
   return sizeof(float) * (size_t)(floats > FACTOR_FLOATS ? floats : FACTOR_FLOATS);
 }
 
-// Blocks of the cooperative grid for npad, or a negative cudaError_t.
-int grid_size(int npad) {
+// Blocks of the cooperative grid for B systems padded to npad: one block per
+// lower tile of the batch, at most the co-resident maximum; or a negative
+// cudaError_t.
+int grid_size(int B, int npad) {
   static int cached_dev = -1, cached_max = 0;
   static size_t cached_smem = 0;
   const size_t smem = smem_bytes(npad);
@@ -585,16 +647,18 @@ int grid_size(int npad) {
     cached_max = sms * per_sm;
   }
   const int NB = npad / T;
-  const int want = NB * (NB + 1) / 2;
-  return want < cached_max ? want : cached_max;
+  const long long want = (long long)B * (NB * (NB + 1) / 2);
+  return want < cached_max ? (int)want : cached_max;
 }
 
-int launch(const float* H, const float* g, const float* lam, float* x, int n, float* L, float* Linv, float* s,
-           float* b, float* y, float* x0, unsigned long long* stamps, void* stream_ptr) {
+int launch(const float* H, const float* g, const float* lam, float* x, int B, int n, float* L, float* Linv,
+           float* s, float* b, float* y, float* x0, long long vstride, unsigned long long* stamps,
+           void* stream_ptr) {
+  if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const int npad = (n + T - 1) / T * T;
-  const int G = grid_size(npad);
+  const int G = grid_size(B, npad);
   if (G <= 0) return G < 0 ? -G : (int)cudaErrorInvalidValue;
-  Args a{H, g, lam, x, L, Linv, s, b, y, x0, stamps, n, npad, npad / T};
+  Args a{H, g, lam, x, L, Linv, s, b, y, x0, stamps, n, npad, npad / T, B, vstride};
   void* args[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)damped_solve_kernel, dim3(G), dim3(THREADS), args,
                                                 smem_bytes(npad), static_cast<cudaStream_t>(stream_ptr));
@@ -611,7 +675,10 @@ extern "C" {
 int tids_damped_solve_pad(int n) { return (n + T - 1) / T * T; }
 
 // Blocks of the cooperative grid for dim n (negative: a CUDA error).
-int tids_damped_solve_grid(int n) { return grid_size(tids_damped_solve_pad(n)); }
+int tids_damped_solve_grid(int n) { return grid_size(1, tids_damped_solve_pad(n)); }
+
+// Blocks of the cooperative grid for a batch of B systems of dim n.
+int tids_damped_solve_batched_grid(int B, int n) { return grid_size(B, tids_damped_solve_pad(n)); }
 
 // x[n] = -(H + lam I)^-1 g on `stream`, one cooperative launch; returns the
 // cudaError_t of the launch (0 on success; a refused launch returns its
@@ -619,17 +686,28 @@ int tids_damped_solve_grid(int n) { return grid_size(tids_damped_solve_pad(n)); 
 // float.
 int tids_damped_solve(const float* H, const float* g, const float* lam, float* x, int n, float* L, float* Linv,
                       float* s, float* b, float* y, float* x0, void* stream) {
-  return launch(H, g, lam, x, n, L, Linv, s, b, y, x0, nullptr, stream);
+  return launch(H, g, lam, x, 1, n, L, Linv, s, b, y, x0, 0, nullptr, stream);
 }
 
-// The same launch, with block 0 writing the globaltimer (ns) at the start and
-// at the end of each phase into stamps[6]: start, set-up, factorization
+// x[k] = -(H[k] + lam[k] I)^-1 g[k] for k < B, one cooperative launch for
+// the batch: H [B, n, n], g [B, n], lam [B], x [B, n]; workspaces L [B,
+// npad, npad], Linv [B, npad, T] and vecs [B, 4, npad] (s, b, y, x0 of each
+// system). Every system is solved as the single entry solves it, bit for bit.
+int tids_damped_solve_batched(const float* H, const float* g, const float* lam, float* x, int B, int n, float* L,
+                              float* Linv, float* vecs, void* stream) {
+  const int npad = tids_damped_solve_pad(n);
+  return launch(H, g, lam, x, B, n, L, Linv, vecs, vecs + npad, vecs + 2 * npad, vecs + 3 * npad, 4LL * npad,
+                nullptr, stream);
+}
+
+// The single launch, with block 0 writing the globaltimer (ns) at the start
+// and at the end of each phase into stamps[6]: start, set-up, factorization
 // (with the first forward solve), first backward solve, residual, second
 // solve pair.
 int tids_damped_solve_timed(const float* H, const float* g, const float* lam, float* x, int n, float* L,
                             float* Linv, float* s, float* b, float* y, float* x0, unsigned long long* stamps,
                             void* stream) {
-  return launch(H, g, lam, x, n, L, Linv, s, b, y, x0, stamps, stream);
+  return launch(H, g, lam, x, 1, n, L, Linv, s, b, y, x0, 0, stamps, stream);
 }
 
 }  // extern "C"

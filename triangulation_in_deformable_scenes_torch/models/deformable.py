@@ -10,7 +10,8 @@ Ported here: ``ModelSpec``/``MODELS``/``model_depth_sigma`` (:51-126), the
 state and data tuples (:129-207), ``apply_delta_spec`` (:233-244), every
 residual (:247-447), ``_edge_blocks`` and ``build_system`` (:468-714),
 ``build_system_jacfwd`` (:632-660), the backend dispatch and ``solve_pair``
-(:744-823) and ``make_pair_data`` (:964-1042). Per-edge local Jacobians come
+(:744-823), the serving drivers ``solve_pairs`` and ``solve_pairs_pipelined``
+(:826-961) and ``make_pair_data`` (:964-1042). Per-edge local Jacobians come
 from forward-mode AD (``torch.func.jvp`` along each of the 18 coordinates an
 edge touches), the counterpart of ``jax.jacfwd`` under ``jax.vmap`` there.
 Above ``DENSE_DIM_LIMIT`` ``solve_pair`` runs the block-sparse backend of
@@ -501,8 +502,11 @@ CG_RTOL = 1e-2
 
 # Dense-backend Jacobian budget across a batch of pairs
 # (``deformable.py:758-763``): the dense path holds J [N (6 + K) + 2, dim]
-# per pair. The JAX package sized it for a 16 GB TPU; only a batched solve
-# (``solve_pairs``, not ported) can reach it, so it is kept as it is.
+# per pair, and ``solve_pairs`` multiplies that by the batch. The JAX
+# package sized it for a 16 GB TPU. It is kept as it is, so that
+# ``use_dense_backend`` picks JAX's backend for every (n, K, batch) and the
+# parity tests compare like with like; re-deriving it for an 80 GB card from
+# the measured peak of a dense serving step is a ROADMAP item.
 DENSE_J_BUDGET_BYTES = 2 << 30
 
 
@@ -547,6 +551,107 @@ def solve_pair(
         state0=state0,
         n_iterations=n_iterations,
     )
+
+
+def _hyper_members(hyper: Hyper, batch: int) -> list:
+    """One Hyper per pair: a shared Hyper (0-d fields) for every pair, or
+    the members of a batched one (leading pair axis; a field that is not a
+    tensor with that axis is shared), as ``hyper_axis`` does in JAX."""
+    if torch.as_tensor(hyper.rep_w).ndim == 0:
+        return [hyper] * batch
+    fields = [f.unbind(0) if isinstance(f, torch.Tensor) and f.ndim > 0 else [f] * batch for f in hyper]
+    return [Hyper(*col) for col in zip(*fields)]
+
+
+def solve_pairs(
+    cam_kind: str,
+    data: PairData,
+    hyper: Hyper,
+    state0: PairState,
+    n_iterations: int,
+    spec: ModelSpec = ModelSpec(),
+) -> lm_ops.LMResult:
+    """Batched multi-pair refinement (``deformable.py:826-917``): every field
+    of ``data`` and ``state0`` carries a leading pair axis, ``hyper`` is
+    shared (0-d fields) or batched. The pairs share (N, K).
+
+    The batch runs under ``lm_optimize_flat_batched``: one global step
+    linearizes every pair, makes one batched solve and one batched cost,
+    and each pair keeps its own sequential (lambda, nu, accept) schedule.
+    The backend follows ``use_dense_backend(n, K, batch)``, as in JAX:
+
+    - dense: each pair's (H, g) from ``build_system``, ``diag_max`` per
+      pair, and ONE launch of kernel 1's batched entry for the batch
+      (``ops/lm.solve_damped_cholesky_batched``; JAX vmaps the contract);
+    - block: each pair's ``build_block_system``, and kernel 2 once per pair
+      (``ops/block_pcg.pcg_block_system``, B launches a step; JAX vmaps the
+      plain ``pcg_flex`` there).
+
+    Assembly and cost run pair by pair in a Python loop (the dense build
+    writes J with an in-place ``scatter_``), so each pair's arithmetic is
+    its ``solve_pair`` arithmetic. Returns LMResult with per-pair ``cost``,
+    ``lam`` and ``n_accepted`` ([B]) and the global steps in ``n_solves``.
+    """
+    from ..ops import block_pcg
+    from . import block_system
+
+    batch = int(data.kp1.shape[0])
+    n = int(state0.p1.shape[1])
+    K = int(data.nbr.shape[-1])
+    datas = lm_ops.unstack(data)
+    hypers = _hyper_members(hyper, batch)
+
+    def cost_b(state_b):
+        return torch.stack([robust_cost(cam_kind, d, h, s, spec)
+                            for d, h, s in zip(datas, hypers, lm_ops.unstack(state_b))])
+
+    if use_dense_backend(n, K, batch):
+
+        def make_step_b(state_b):
+            Hg = [build_system(cam_kind, d, h, s, spec) for d, h, s in zip(datas, hypers, lm_ops.unstack(state_b))]
+            H = torch.stack([h for h, _ in Hg])
+            g = torch.stack([gg for _, gg in Hg])
+            diag_max = torch.stack([torch.max(torch.diagonal(h)) for h, _ in Hg])
+            return (lambda lam_b: lm_ops.solve_damped_cholesky_batched(H, g, lam_b)), g, diag_max
+
+    else:
+
+        def make_step_b(state_b):
+            systems = [block_system.build_block_system(cam_kind, d, h, s, spec)
+                       for d, h, s in zip(datas, hypers, lm_ops.unstack(state_b))]
+            g = torch.stack([block_system.flat_gradient(sy) for sy in systems])
+            diag_max = torch.stack([torch.max(block_system.diag_of(sy)) for sy in systems])
+
+            def solve_b(lam_b):
+                return torch.stack([
+                    block_pcg.pcg_block_system(sy, d.nbr, -gg, lam, CG_ITERS, CG_RTOL)
+                    for sy, d, gg, lam in zip(systems, datas, g, lam_b)
+                ])
+
+            return solve_b, g, diag_max
+
+    return lm_ops.lm_optimize_flat_batched(
+        make_step_b, cost_b, apply_delta_spec(spec), state0, batch, n_iterations,
+    )
+
+
+def solve_pairs_pipelined(
+    cam_kind: str,
+    datas,
+    hyper: Hyper,
+    states,
+    n_iterations: int,
+    spec: ModelSpec = ModelSpec(),
+) -> list:
+    """The per-pair serving scheduler (``deformable.py:920-961``): one
+    ``solve_pair`` per pair, in order; returns their LMResults.
+
+    In JAX the solves are queued back to back and the caller syncs once.
+    Here every LM trial reads its accept decision back to the host, so one
+    pair's solve does not overlap the next one's on the device; the port
+    adds no streams. The JAX docstring's TPU rates are not the port's.
+    """
+    return [solve_pair(cam_kind, d, hyper, s, n_iterations, spec) for d, s in zip(datas, states)]
 
 
 def make_pair_data(
