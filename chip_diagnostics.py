@@ -146,10 +146,10 @@ print(f"[extract] median_ms={statistics.median(times):.3f} min_ms={min(times):.3
 # Kernel 1: one mutant may break several lines (pairs of old, new).
 CHOL_MUTANTS = {
     "no_diagonal_tile_update": (
-        ("= o[p][v] - acc[p][v];", "= i == j ? o[p][v] : o[p][v] - acc[p][v];"),
-        ("Q1[(ty + 16 * p) * TS + tx + 16 * v] -= acc[p][v];", "Q1[(ty + 16 * p) * TS + tx + 16 * v] -= 0.0f * acc[p][v];"),
+        ("= o[u][v] - acc[u][v];", "= i == j ? o[u][v] : o[u][v] - acc[u][v];"),
+        ("Q1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];", "Q1[(ty + 16 * u) * TS + tx + 16 * v] -= 0.0f * acc[u][v];"),
     ),
-    "no_lam_x0_in_residual": ("(acc + S.lam * __ldcg(S.x0 + row))", "(acc)"),
+    "no_lam_x0_in_residual": ("(acc + lam * __ldcg(a.x0 + row))", "(acc)"),
     "no_sync_before_substitution": (
         "    grid.sync();\n  }\n  if (stamp) a.stamps[2] = now_ns();",
         "    if (c + 1 < NB) grid.sync();\n  }\n  if (stamp) a.stamps[2] = now_ns();",

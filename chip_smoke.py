@@ -12,8 +12,8 @@ Phases, each of which must pass (nothing is caught):
 2. kernel 1 (damped Cholesky): the CUDA kernel against its plain PyTorch
    version on the card at dims 377 and 746 (the sequence path's rigid and
    general solves), 728 (the 240-point rigid solve), 1448 (the 240-point
-   general solve), 2591 (the 861-point rigid solve) and 4096 (the dense
-   ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
+   general solve), 2591 (the 861-point rigid solve), 3048 (bundle
+   adjustment) and 4096 (the dense ceiling), diagonal scales 1e-3..1e5, relative error < 1e-5 of
    max|x|; REPEATS more calls on the same input bit-identical to the first;
    ``torch.profiler`` sees one CUDA launch per solve, of
    ``damped_solve_kernel`` and nothing else; a non-PD system must give
@@ -46,7 +46,8 @@ Phases, each of which must pass (nothing is caught):
    SM clock of block 0 (``tids_pcg_solve_timed``), the grid, the plain
    version's time by CUDA events, and the bound. The same checks on the
    861-point system repeated until it no longer fits the resident kernel
-   (the strided kernel, fewer warps than points).
+   (the strided kernel, fewer warps than points), and on the serving block
+   branch's own first system (phase 18's fixture, pair 0, 680 points).
 4. main path: the synthetic two-view simulation at full width (240 points,
    tangent dim 1448; ``harness/sweep_config.py``) through
    ``SimulationPipeline(device="cuda")`` with the launch counts reset just
@@ -153,21 +154,22 @@ Phases, each of which must pass (nothing is caught):
    ``cholesky_ex`` + ``cholesky_solve``; the bound is B times the single
    system's.
 18. serving (``harness/serving.py``, the JAX package's serving fixture,
-   bench.py:676-744), counts reset just before each run and read just
-   after: ``solve_pairs`` on 16 pairs of 128 points (dim 776) for 25
-   iterations makes one batched kernel-1 launch per global step, all at
-   (16, 776); ``solve_pairs_pipelined`` one single launch per damped solve;
-   per pair the two give the same n_accepted and costs within 1e-5, and
-   JAX's n_accepted and a cost within TIED_RTOL of JAX's after one
-   iteration and FINAL_REL_TOL after 25, or SERVING_FREE_RTOL on a pair
-   whose frozen rotations the draw leaves free (the note at
-   SERVING_TIED_ITERS); throughput under bench.py's keys, the split of one
-   global step (assembly, solve, cost) and the peak device memory. Then
-   the block branch, 16 pairs of 680 points (dim 4088, over
-   DENSE_J_BUDGET_BYTES) for 3 iterations: kernel-2 launches equal the
-   pairs' damped solves (16 a global step), each pair the same as alone on
-   the block backend, JAX's n_accepted and costs within SERVING_FREE_RTOL
-   (every block pair has a free rotation).
+   bench.py:676-744, with JAX's frozen rotations pinned at the vertices
+   that the draw leaves free: the note at SERVING_TIED_ITERS), counts reset
+   just before each run and read just after: ``solve_pairs`` on 16 pairs
+   of 128 points (dim 776) for 25 iterations makes one batched kernel-1
+   launch per global step, all at (16, 776); ``solve_pairs_pipelined`` one
+   single launch per damped solve; per pair the two give the same
+   n_accepted and costs within 1e-5, and JAX's n_accepted and a cost
+   within TIED_RTOL of JAX's after one iteration and FINAL_REL_TOL after
+   25; throughput under bench.py's keys, the split of one global step
+   (assembly, solve, cost) and the peak device memory. Then the block
+   branch, 16 pairs of 680 points (dim 4088, over DENSE_J_BUDGET_BYTES;
+   kernel 2 is held to its plain version on pair 0's first system in
+   phase 3) for 3 iterations: kernel-2 launches equal the pairs' damped
+   solves (16 a global step), each pair the same as alone on the block
+   backend, JAX's n_accepted and costs within TIED_RTOL of JAX's after one
+   iteration and after 3.
 19. bundle adjustment (``harness/ba_scene.py``, tests/test_worldmap_ba.py's
    scene at 8 keyframes x 1,000 points, dim 3,048): every observation in
    front of its camera; kernel-1 launches equal the damped solves, at dim
@@ -386,18 +388,17 @@ BATCH_DIMS = (6, 776, 1448)
 # SERVING_TIED_ITERS iteration (*_TIED) and at the full budget, and
 # solve_pairs_pipelined, on the 16 x 128-point batch (25 iterations); the
 # block branch, 16 x 680 points (3 iterations). The fixture's pixels are
-# drawn apart from its points, and in 5 of the 16 dense pairs (every block
+# drawn apart from its points, and in 6 of the 16 dense pairs (every block
 # pair) some vertex keeps one weighted mesh edge: its frozen rotation is
-# free about that edge (``serving.free_rotations``), each device's SVD picks
-# its own, and the pair is a different problem on each device. Pairs without
-# one: the port on the CPU within 2.5e-7 of JAX after one iteration and
-# 7.5e-5 after 25; held to TIED_RTOL and FINAL_REL_TOL. Pairs with one: the
-# port on the CPU 6.7e-4 and 2.2e-2 from JAX (block: 7.7e-3 and 0.387), the
-# card 1.3e-2 after one iteration (an H100 80GB HBM3 at 700 W); handed JAX's rotations the
-# port lands within 4.3e-4 of JAX on every dense pair
-# (test_free_rotations_are_the_gap_to_jax). They are held, as the bigN
-# trajectory is, to JAX's n_accepted and a cost within BIGN_COST_RTOL
-# (SERVING_FREE_RTOL).
+# free about that edge (``serving.free_vertices``), and each device's SVD
+# picks its own. The card's fixtures are pinned to JAX's rotations at those
+# vertices (*_FREE_RI: {pair: {vertex: R row-major}}), so every pair is
+# JAX's problem. The port on the CPU, pinned: within 2.5e-7 of JAX after
+# one iteration and 7.5e-5 after 25 (block: 9.4e-6 and 5.2e-4), n_accepted
+# equal (``--port``). Held to TIED_RTOL after one iteration and
+# FINAL_REL_TOL after 25, the block branch to TIED_RTOL after 3: on the
+# CPU, a PCG whose steps are 1 % short, or that stops at rtol 0.1, leaves
+# 11 and all 16 block pairs outside TIED_RTOL after 3 iterations.
 SERVING_TIED_ITERS = 1
 JAX_SERVING_DENSE_TIED_COST = [125344.9453125, 122610.5078125, 113744.5078125, 146078.359375, 95564.78125, 170571.578125, 144271.890625, 136833.828125, 130916.234375, 182270.140625, 145255.703125, 141047.71875, 128652.84375, 217511.28125, 133477.578125, 121124.53125]
 JAX_SERVING_DENSE_TIED_N_ACCEPTED = [1] * 16
@@ -409,7 +410,32 @@ JAX_SERVING_BLOCK_TIED_COST = [2469766.5, 1167910.0, 5497668.5, 1979105.5, 14377
 JAX_SERVING_BLOCK_TIED_N_ACCEPTED = [1] * 16
 JAX_SERVING_BLOCK_COST = [1832392.875, 329100.78125, 929547.9375, 305896.0, 222767.25, 2478431.25, 1046965.75, 883036.6875, 322366.46875, 283120.09375, 461143.625, 1146964.625, 2025473.125, 1105261.375, 397062.6875, 851801.25]
 JAX_SERVING_BLOCK_N_ACCEPTED = [3] * 16
-SERVING_FREE_RTOL = BIGN_COST_RTOL
+JAX_SERVING_DENSE_FREE_RI = {
+    1: {110: [-0.7311654090881348, -0.3916631042957306, -0.5585669279098511, 0.3602422773838043, -0.9169741272926331, 0.17141780257225037, -0.5793295502662659, -0.07588446885347366, 0.8115532994270325]},
+    2: {74: [0.04980362951755524, -0.9267010688781738, -0.3724851906299591, 0.8290338516235352, 0.2463388442993164, -0.5020159482955933, 0.5569763779640198, -0.28380048274993896, 0.7805348634719849]},
+    4: {105: [0.9805328845977783, 0.12053852528333664, -0.1550016701221466, -0.08507683873176575, 0.9722574949264526, 0.21789219975471497, 0.17696602642536163, -0.20046354830265045, 0.963585615158081]},
+    8: {76: [-0.9525389671325684, -0.29195064306259155, 0.08622260391712189, 0.3026215434074402, -0.9388590455055237, 0.1642070710659027, 0.03301025927066803, 0.1825065016746521, 0.9826501607894897], 121: [0.06836744397878647, -0.7335444688796997, -0.6761941909790039, 0.41308870911598206, 0.6377637386322021, -0.6500887274742126, 0.9081209897994995, -0.2348831743001938, 0.34662118554115295]},
+    9: {88: [-0.07823991030454636, 0.9969177842140198, 0.0057723489589989185, -0.8763245940208435, -0.06601284444332123, -0.47717639803886414, -0.4753247797489166, -0.04239276796579361, 0.8787885308265686]},
+    11: {46: [-0.6347568035125732, 0.7644127011299133, 0.11294712126255035, -0.7210410237312317, -0.638502836227417, 0.26909857988357544, 0.27781951427459717, 0.08937261998653412, 0.9564669728279114], 104: [-0.9819464087486267, -0.18473514914512634, 0.040671173483133316, 0.18751201033592224, -0.9789430499076843, 0.08068238943815231, 0.024909870699048042, 0.08685211092233658, 0.9959098100662231]},
+}
+JAX_SERVING_BLOCK_FREE_RI = {
+    0: {55: [-0.34081748127937317, 0.9241893887519836, 0.1723887026309967, -0.859601616859436, -0.23208805918693542, -0.4552151560783386, -0.3806956708431244, -0.3033307194709778, 0.8735337853431702], 423: [0.6087578535079956, 0.7920277118682861, -0.045891255140304565, -0.7932906150817871, 0.6069448590278625, -0.04804142564535141, -0.010196353308856487, 0.06565062701702118, 0.9977904558181763], 479: [-0.9008044004440308, 0.0032201826106756926, 0.4342130720615387, 0.051810745149850845, -0.9920317530632019, 0.11484228074550629, 0.43112319707870483, 0.12594731152057648, 0.893459677696228]},
+    1: {16: [-0.7420801520347595, -0.6661396622657776, 0.07466813921928406, 0.6112781167030334, -0.7182239294052124, -0.332405686378479, 0.2750568091869354, -0.2010287046432495, 0.9401760101318359], 588: [-0.9426180124282837, -0.2676445543766022, 0.19959360361099243, 0.299163818359375, -0.9424930214881897, 0.1490236520767212, 0.14823031425476074, 0.20018360018730164, 0.9684804081916809]},
+    2: {149: [-0.9238892793655396, 0.33052077889442444, -0.1928333044052124, -0.2952239215373993, -0.936275839805603, -0.19034232199192047, -0.2434573620557785, -0.11892630159854889, 0.9625928401947021]},
+    3: {324: [-0.963208794593811, 0.0528922937810421, 0.26349717378616333, 0.025663966313004494, -0.9578601121902466, 0.2860862910747528, 0.2675253748893738, 0.2823234498500824, 0.9212619066238403], 623: [0.24029146134853363, -0.9706931114196777, 0.003909730818122625, 0.9677537083625793, 0.2392461746931076, -0.0788305252790451, 0.07558473199605942, 0.022725926712155342, 0.9968804717063904]},
+    4: {221: [-0.020885156467556953, -0.9994143843650818, 0.02710694633424282, 0.9933457970619202, -0.023814579471945763, -0.11268126219511032, 0.11326069384813309, 0.02457321062684059, 0.993261456489563]},
+    5: {169: [-0.9639443755149841, -0.24240805208683014, 0.10977146774530411, 0.23337815701961517, -0.9683103561401367, -0.08893804252147675, 0.12785229086875916, -0.06011302024126053, 0.9899699687957764], 286: [0.38046157360076904, -0.9162556529045105, -0.12539944052696228, 0.6757851839065552, 0.36801642179489136, -0.6386538743972778, 0.631318986415863, 0.15824012458324432, 0.7592077851295471], 378: [0.873508870601654, 0.01678359881043434, 0.4865188002586365, 0.10452324151992798, 0.9696306586265564, -0.22111359238624573, -0.47545474767684937, 0.24399714171886444, 0.8452268838882446]},
+    6: {88: [0.39010825753211975, 0.9190965890884399, -0.05547013878822327, -0.9144547581672668, 0.3796863853931427, -0.14003832638263702, -0.10764727741479874, 0.10535507649183273, 0.9885908961296082], 622: [0.8472141027450562, -0.5310251116752625, 0.015516330488026142, 0.530964732170105, 0.8454350233078003, -0.05758874863386154, 0.01746297813951969, 0.057028498500585556, 0.9982199668884277]},
+    7: {73: [-0.9474483728408813, 0.2530808448791504, -0.19568271934986115, -0.3126169741153717, -0.8622982501983643, 0.39838695526123047, -0.06791284680366516, 0.43862485885620117, 0.8961004614830017], 241: [0.5294462442398071, 0.8482831716537476, 0.01014162227511406, -0.8482865691184998, 0.5295112729072571, -0.005286578554660082, -0.009854275733232498, -0.005804041400551796, 0.9999348521232605], 324: [0.8732786774635315, 0.4524345099925995, -0.18079674243927002, -0.48295700550079346, 0.8528186678886414, -0.19862747192382812, 0.0643211305141449, 0.2607741355895996, 0.9632548093795776], 445: [-0.9901627898216248, 0.1043345257639885, 0.09323447197675705, -0.09451190382242203, -0.9900559782981873, 0.10419627279043198, 0.10317879915237427, 0.09435933828353882, 0.9901771545410156]},
+    8: {290: [0.5533152222633362, 0.826945424079895, -0.10001731663942337, -0.8099411725997925, 0.5621640086174011, 0.16723184287548065, 0.19451794028282166, -0.011523762717843056, 0.9808313250541687], 315: [0.5213955640792847, 0.8523166179656982, 0.041270602494478226, -0.8527995944023132, 0.5221519470214844, -0.00951413530856371, -0.029658587649464607, -0.030234992504119873, 0.9991027116775513], 439: [-0.40250229835510254, 0.913586437702179, 0.0578974187374115, -0.6168472170829773, -0.22394788265228271, -0.7545506954193115, -0.6763812303543091, -0.3394221067428589, 0.6536827087402344], 455: [0.9463832378387451, -0.01865590736269951, -0.32250598073005676, 0.006265905220061541, 0.9992034435272217, -0.03941391408443451, 0.3229846656322479, 0.035279907286167145, 0.9457462430000305], 643: [-0.9465146064758301, -0.0005961097776889801, 0.32265955209732056, -0.048713430762290955, -0.9882720112800598, -0.14472518861293793, 0.3189617991447449, -0.15270237624645233, 0.9353850483894348]},
+    9: {0: [0.9653910994529724, -0.20009468495845795, -0.16727706789970398, 0.21358643472194672, 0.9746372699737549, 0.06680282950401306, 0.1496676355600357, -0.1002189889550209, 0.9836440086364746], 433: [0.7867820262908936, -0.5853859782218933, -0.1956971287727356, 0.5355523824691772, 0.8050677180290222, -0.2550484836101532, 0.30685126781463623, 0.09586147218942642, 0.9469174742698669], 556: [-0.8791443109512329, 0.0002075263619190082, 0.4765557050704956, 0.05023758485913277, -0.9943877458572388, 0.0931108221411705, 0.47390058636665344, 0.1057986319065094, 0.8741999864578247]},
+    10: {74: [-0.9369387030601501, -0.17525464296340942, -0.3023763597011566, 0.326057493686676, -0.1268383413553238, -0.9368022084236145, 0.1258259117603302, -0.9763185977935791, 0.17598295211791992], 176: [-0.02343299426138401, -0.9993105530738831, -0.02879866026341915, 0.9995838403701782, -0.023904917761683464, 0.016152719035744667, -0.0168299600481987, -0.02840816043317318, 0.9994547367095947], 221: [0.5397629141807556, -0.7979899644851685, 0.2680819034576416, 0.8142720460891724, 0.5757164359092712, 0.07423924654722214, -0.21358127892017365, 0.1782200187444687, 0.9605314135551453], 257: [-0.9853662848472595, 0.022431448101997375, 0.16896754503250122, -0.01647145114839077, -0.9991943836212158, 0.036592915654182434, 0.1696522980928421, 0.03327450156211853, 0.9849419593811035], 353: [-0.8773869872093201, 0.46771904826164246, 0.10691535472869873, -0.47874775528907776, -0.8681126236915588, -0.13107693195343018, 0.031507425010204315, -0.16619065403938293, 0.9855901002883911], 420: [0.9690841436386108, -0.23724766075611115, -0.06774816662073135, 0.2400406450033188, 0.970077395439148, 0.036474645137786865, 0.05706743150949478, -0.05160946771502495, 0.9970353245735168], 439: [0.9992034435272217, 0.03353183716535568, 0.021640580147504807, -0.033780016005039215, 0.9993665814399719, 0.011204125359654427, -0.021251367405056953, -0.011926385574042797, 0.9997032284736633], 452: [0.9723442196846008, 0.027717718854546547, -0.23190267384052277, -0.024233471602201462, 0.9995468258857727, 0.017860006541013718, 0.2322928011417389, -0.011746224015951157, 0.9725750684738159], 543: [-0.9991877675056458, 0.04003409668803215, 0.004563197959214449, -0.04027463123202324, -0.9957346320152283, -0.08300921320915222, 0.0012207786785438657, -0.08312571793794632, 0.996537983417511]},
+    11: {123: [0.7603111863136292, -0.23721331357955933, 0.6046956181526184, -0.17203520238399506, 0.8241510987281799, 0.5396100282669067, -0.6263632774353027, -0.5143003463745117, 0.5858021974563599]},
+    12: {609: [0.43901368975639343, 0.8967333436012268, -0.056001219898462296, -0.8962461948394775, 0.441463440656662, 0.0430450402200222, 0.063322514295578, 0.03129350766539574, 0.9975022673606873]},
+    13: {334: [0.445098340511322, -0.8850279450416565, -0.13642936944961548, 0.8108617663383484, 0.3336838185787201, 0.4807894229888916, -0.37998777627944946, -0.3246240019798279, 0.8661572933197021], 659: [-0.9705098271369934, -0.16668729484081268, 0.17414377629756927, 0.1538429856300354, -0.9844399094581604, -0.08491566777229309, 0.1855885237455368, -0.05562068894505501, 0.9810521602630615]},
+    14: {245: [0.8474730849266052, 0.3637250065803528, -0.38664382696151733, -0.43380433320999146, 0.8943248987197876, -0.10953037440776825, 0.30594637989997864, 0.2605520486831665, 0.9157015681266785], 326: [0.4287455379962921, 0.8986040353775024, -0.09320998936891556, -0.8870183229446411, 0.4382864236831665, 0.14527173340320587, 0.1713946908712387, 0.020394351333379745, 0.9849914312362671], 425: [-0.41038158535957336, 0.9062619805335999, 0.10137186199426651, -0.9107701182365417, -0.4128924310207367, 0.004197244998067617, 0.04565960168838501, -0.09060393273830414, 0.9948397874832153]},
+    15: {229: [0.8280431032180786, 0.21674710512161255, -0.5170738101005554, -0.28533992171287537, 0.9567962288856506, -0.05587422102689743, 0.482623815536499, 0.19380813837051392, 0.8541151285171509], 289: [0.9991276264190674, 0.01966550573706627, 0.03683915734291077, -0.020674537867307663, 0.999415934085846, 0.027211738750338554, -0.036282651126384735, -0.027949515730142593, 0.9989505410194397]},
+}
 
 # Bundle adjustment (phase 19): tests/test_worldmap_ba.py's scene at 8
 # keyframes x 1,000 points (harness/ba_scene.py; dim 3,048, 8,000
@@ -600,7 +626,7 @@ def device_ms(fn, kernel, reps=20):
     return ms / reps
 
 
-def device_launches(fn, reps=20, tries=3):
+def device_launches(fn, reps=20, tries=5):
     """CUDA kernel launches over ``reps`` calls of ``fn`` and their mean
     device time (ms) per launch, by kernel name, from ``torch.profiler``.
     The calls are recorded in the active step of a schedule whose warm-up
@@ -608,10 +634,11 @@ def device_launches(fn, reps=20, tries=3):
     both ends of each step: kernels near the edges of the window went
     unrecorded (read: 13 of 20 solves at dim 1448 without the warm-up step,
     19 of 20 at 4096 without the margins). Records are still lost at times
-    (read: 8 of 20 launches of an 18 us kernel after 400 s of other phases),
-    so a count that is not a whole multiple of ``reps`` (identical calls
-    launch alike) is profiled again, up to ``tries`` times. A lost record
-    can only lower a count, so this hides no extra launch."""
+    (read: 8 of 20 launches of an 18 us kernel after 400 s of other phases;
+    once all of them), so a count that is zero or not a whole multiple of
+    ``reps`` (identical calls launch alike) is profiled again, up to
+    ``tries`` times. A lost record can only lower a count, so this hides no
+    extra launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -630,7 +657,7 @@ def device_launches(fn, reps=20, tries=3):
         seen = {ev.key: (ev.count, ev.self_device_time_total / ev.count / 1e3)
                 for ev in prof.key_averages() if ev.self_device_time_total > 0}
         total = sum(count for count, _ in seen.values())
-        if total % reps == 0:
+        if total and total % reps == 0:
             break
         log(f"[profiler] {total} launch records for {reps} identical calls (attempt {attempt + 1}): profiling again")
     return seen
@@ -707,7 +734,7 @@ def kernel_phase():
     from triangulation_in_deformable_scenes_torch.ops import lm
 
     rows = {}
-    for dim in (6, 377, 728, 746, 1448, 2591, 4096):
+    for dim in (6, 377, 728, 746, 1448, 2591, 3048, 4096):
         H, g, lam = make_system(dim, seed=dim)
         rows[dim] = kernel_case("synthetic", torch.as_tensor(H, device="cuda"),
                                 torch.as_tensor(g, device="cuda"), lam)
@@ -1011,6 +1038,22 @@ def pcg_case(num_points):
     """Kernel 2 against the plain version on the large-N path's first
     system at ``num_points``; returns its row."""
     return pcg_check(f"{num_points} points", *_block_problem(num_points))
+
+
+def serving_pcg_case():
+    """Kernel 2 against the plain version on the serving block branch's own
+    system: pair 0 of the 680-point fixture (JAX's rotations pinned) at its
+    first step and the LM loop's first damping; returns its row."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import serving
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable
+    from triangulation_in_deformable_scenes_torch.ops import lm
+
+    fb = serving.serving_batch(serving.BLOCK_POINTS, batch=1, rotations=JAX_SERVING_BLOCK_FREE_RI)
+    sys0 = block_system.build_block_system("KB8", fb.datas[0], fb.hyper, fb.states[0], deformable.ModelSpec())
+    return pcg_check(f"serving block pair 0, {serving.BLOCK_POINTS} points", sys0, fb.datas[0].nbr,
+                     -block_system.flat_gradient(sys0), lm.TAU * torch.max(block_system.diag_of(sys0)))
 
 
 def pcg_check(label, sys_, nbr, b, lam):
@@ -1906,23 +1949,17 @@ def _reset_kernel_counts():
     block_pcg.LAUNCHES_BY_DIM.clear()
 
 
-def _hold_to_jax(label, costs, accepted, want_costs, want_accepted, free, rel_tol):
-    """Per pair: n_accepted equal to JAX's; the cost within ``rel_tol`` of
-    JAX's, or SERVING_FREE_RTOL where the pair has free rotations."""
-    for i, (c, a, wc, wa, f) in enumerate(zip(costs, accepted, want_costs, want_accepted, free)):
-        tol = SERVING_FREE_RTOL if f else rel_tol
+def _hold_to_jax(label, costs, accepted, want_costs, want_accepted, rel_tol):
+    """Per pair: n_accepted equal to JAX's and the cost within ``rel_tol`` of
+    JAX's."""
+    for i, (c, a, wc, wa) in enumerate(zip(costs, accepted, want_costs, want_accepted)):
         check(a == wa, f"{label} pair {i}: n_accepted {a} != JAX's {wa}")
-        check(abs(c - wc) <= tol * abs(wc), f"{label} pair {i}: cost {c!r} outside {tol} of JAX's {wc!r}")
+        check(abs(c - wc) <= rel_tol * abs(wc), f"{label} pair {i}: cost {c!r} outside {rel_tol} of JAX's {wc!r}")
 
 
-def _spreads(costs, want, free):
-    """Largest relative differences over the pairs without and with free
-    rotations."""
-    out = []
-    for with_free in (False, True):
-        rel = [abs(a / b - 1) for a, b, f in zip(costs, want, free) if bool(f) == with_free]
-        out.append(f"{max(rel):.3e}" if rel else "no pair")
-    return f"{out[0]} (pairs with free rotations {out[1]})"
+def _spread(costs, want):
+    """Largest relative difference over the pairs."""
+    return f"{max(abs(a / b - 1) for a, b in zip(costs, want)):.3e}"
 
 
 def _costs(res):
@@ -1940,18 +1977,18 @@ def serving_phase():
     from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
 
     B, iters = serving.BATCH, serving.ITERATIONS
-    fx = serving.serving_batch(serving.POINTS)
+    fx = serving.serving_batch(serving.POINTS, rotations=JAX_SERVING_DENSE_FREE_RI)
     dim = 6 * serving.POINTS + 8
     check(len(fx.datas) == B and fx.data.nbr.shape[-1] == serving.DEGREE_BUCKET, f"serving fixture kept {fx.kept}")
     check(deformable.use_dense_backend(serving.POINTS, serving.DEGREE_BUCKET, B), "the dense fixture is not dense")
 
     # While the runs are tied (and as the warm-up of the timed runs).
     ct, at = _costs(deformable.solve_pairs("KB8", fx.data, fx.hyper, fx.state, SERVING_TIED_ITERS))
-    log(f"[serving] free rotations per pair {fx.free}; solve_pairs after {SERVING_TIED_ITERS} iteration: "
-        f"cost vs JAX CPU {_spreads(ct, JAX_SERVING_DENSE_TIED_COST, fx.free)} "
-        f"(limits {TIED_RTOL}, {SERVING_FREE_RTOL})")
+    log(f"[serving] free vertices pinned to JAX's rotations per pair {[len(f) for f in fx.free]}; solve_pairs "
+        f"after {SERVING_TIED_ITERS} iteration: cost vs JAX CPU {_spread(ct, JAX_SERVING_DENSE_TIED_COST)} "
+        f"(limit {TIED_RTOL})")
     _hold_to_jax("tied solve_pairs", ct, at, JAX_SERVING_DENSE_TIED_COST, JAX_SERVING_DENSE_TIED_N_ACCEPTED,
-                 fx.free, TIED_RTOL)
+                 TIED_RTOL)
 
     _reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1986,13 +2023,12 @@ def serving_phase():
     spread = max(abs(a / b - 1) for a, b in zip(cb, cp))
     log(f"[serving] per pair: n_accepted batched {ab} pipelined {ap}; cost max relative difference "
         f"batched/pipelined {spread:.3e} ({bit_equal} of {B} pairs bit-equal in cost and state), "
-        f"vs JAX CPU {_spreads(cb, JAX_SERVING_DENSE_COST, fx.free)} (batched) "
-        f"{_spreads(cp, JAX_SERVING_DENSE_PIPELINED_COST, fx.free)} (pipelined; limits {FINAL_REL_TOL}, "
-        f"{SERVING_FREE_RTOL})")
+        f"vs JAX CPU {_spread(cb, JAX_SERVING_DENSE_COST)} (batched) "
+        f"{_spread(cp, JAX_SERVING_DENSE_PIPELINED_COST)} (pipelined; limit {FINAL_REL_TOL})")
     check(ab == ap and spread <= 1e-5, "solve_pairs and solve_pairs_pipelined disagree")
-    _hold_to_jax("solve_pairs", cb, ab, JAX_SERVING_DENSE_COST, JAX_SERVING_DENSE_N_ACCEPTED, fx.free, FINAL_REL_TOL)
+    _hold_to_jax("solve_pairs", cb, ab, JAX_SERVING_DENSE_COST, JAX_SERVING_DENSE_N_ACCEPTED, FINAL_REL_TOL)
     _hold_to_jax("solve_pairs_pipelined", cp, ap, JAX_SERVING_DENSE_PIPELINED_COST,
-                 JAX_SERVING_DENSE_PIPELINED_N_ACCEPTED, fx.free, FINAL_REL_TOL)
+                 JAX_SERVING_DENSE_PIPELINED_N_ACCEPTED, FINAL_REL_TOL)
     check(all(c < 0.1 * float(i) for c, i in zip(cb, rb.initial_cost.cpu())), "the serving costs did not descend")
     log("[serving] " + json.dumps({
         "serving_batch": B,
@@ -2017,16 +2053,16 @@ def serving_phase():
         f"host_loop_ms={1e3 * (wall_s - sum(spent.values())) / steps:.3f}")
 
     # The block branch: 16 pairs of 680 points, over the dense budget.
-    fb = serving.serving_batch(serving.BLOCK_POINTS)
+    fb = serving.serving_batch(serving.BLOCK_POINTS, rotations=JAX_SERVING_BLOCK_FREE_RI)
     nb, bdim = serving.BLOCK_POINTS, 6 * serving.BLOCK_POINTS + 8
     check(len(fb.datas) == B and not deformable.use_dense_backend(nb, serving.DEGREE_BUCKET, B),
           "the block fixture does not run on the block backend")
     ct, at = _costs(deformable.solve_pairs("KB8", fb.data, fb.hyper, fb.state, SERVING_TIED_ITERS))
-    log(f"[serving] block branch: free rotations per pair {fb.free}; after {SERVING_TIED_ITERS} iteration: "
-        f"cost vs JAX CPU {_spreads(ct, JAX_SERVING_BLOCK_TIED_COST, fb.free)} (limits {TIED_RTOL}, "
-        f"{SERVING_FREE_RTOL})")
+    log(f"[serving] block branch: free vertices pinned per pair {[len(f) for f in fb.free]}; after "
+        f"{SERVING_TIED_ITERS} iteration: cost vs JAX CPU {_spread(ct, JAX_SERVING_BLOCK_TIED_COST)} "
+        f"(limit {TIED_RTOL})")
     _hold_to_jax("tied block-branch solve_pairs", ct, at, JAX_SERVING_BLOCK_TIED_COST,
-                 JAX_SERVING_BLOCK_TIED_N_ACCEPTED, fb.free, TIED_RTOL)
+                 JAX_SERVING_BLOCK_TIED_N_ACCEPTED, TIED_RTOL)
     _reset_kernel_counts()
     t0 = time.perf_counter()
     rk = deformable.solve_pairs("KB8", fb.data, fb.hyper, fb.state, serving.BLOCK_ITERATIONS)
@@ -2051,11 +2087,11 @@ def serving_phase():
     flat_vs_single = max(abs(a / float(r.cost) - 1) for a, r in zip(ck, singles))
     log(f"[serving] block branch per pair: n_accepted {ak} (JAX {JAX_SERVING_BLOCK_N_ACCEPTED}); cost max relative "
         f"difference vs each pair alone on the block backend {flat_vs_single:.3e}, vs JAX CPU "
-        f"{_spreads(ck, JAX_SERVING_BLOCK_COST, fb.free)} (limits {TIED_RTOL}, {SERVING_FREE_RTOL})")
+        f"{_spread(ck, JAX_SERVING_BLOCK_COST)} (limit {TIED_RTOL})")
     check(ak == [r.n_accepted for r in singles] and flat_vs_single <= 1e-5,
           "block-branch solve_pairs differs from each pair's block solve")
     _hold_to_jax("block-branch solve_pairs", ck, ak, JAX_SERVING_BLOCK_COST, JAX_SERVING_BLOCK_N_ACCEPTED,
-                 fb.free, TIED_RTOL)
+                 TIED_RTOL)
     return batched
 
 
@@ -2160,6 +2196,7 @@ def main():
     refinement_phase()
     pcg_rows = {n: pcg_case(n) for n in (LARGE_POINTS, BIGN_POINTS)}
     pcg_stride_case()
+    serving_pcg_case()
     launches = main_path_phase()
     split_phase(240)
     cross_device_phase()

@@ -10,11 +10,14 @@ points 1e-6 m after 8 iterations, before the schedules can part on f32
 noise).
 
 Run as a script, it prints the JAX package's CPU values of the serving
-fixtures that ``chip_smoke.py`` holds the card to (``--port``: the port's
-CPU values beside them, and their spread over the pairs with and without
-free rotations, ``serving.free_rotations``):
+fixtures that ``chip_smoke.py`` holds the card to: JAX's frozen rotations
+at the vertices that the draw leaves free (``serving.free_vertices``),
+which the card's fixture pins, and the costs (``--port``: the port's CPU
+values on the pinned fixtures beside them, and their spread;
+``--mutants``: how many block pairs a deliberately weakened PCG puts
+outside chip_smoke.py's limit of 1e-2 from JAX after 3 iterations):
 
-    JAX_PLATFORMS=cpu python tests/test_torch_serving.py [--port]
+    JAX_PLATFORMS=cpu python tests/test_torch_serving.py [--port] [--mutants]
 """
 
 import os
@@ -260,25 +263,41 @@ def test_solve_pairs_takes_each_pairs_solve_pair_schedule():
         assert abs(float(rb.cost[i]) - float(r.cost)) <= 1e-5 * abs(float(r.cost))
 
 
-@pytest.mark.parametrize("pair", [1, 8])
-def test_free_rotations_are_the_gap_to_jax(pair):
-    """Pairs 1 and 8 of the dense serving fixture each have a vertex whose
-    frozen rotation the draw leaves free (``serving.free_rotations``): any
-    rotation about its one weighted edge fits, and each package's SVD picks
-    its own. After 25 iterations their costs lie 1.3e-2 and 2.2e-2 from
-    JAX's, where every pair without one lies within 7.5e-5. Handed JAX's
-    rotations, the port's run lands within 1e-4 of JAX's (6e-6 and 1e-7
-    read) with the same n_accepted: the gap is the fixture's free
-    rotations, not the port's arithmetic."""
-    fx = serving.serving_batch(serving.POINTS, device="cpu")
-    assert fx.free[pair] > 0 and fx.free[0] == 0
-    datas, states, _, _, jh = _jax_fixture(serving.POINTS)
-    jd = datas[pair]
-    rj = j_def.solve_pair("KB8", jd, jh, states[pair], serving.ITERATIONS)
-    td = fx.datas[pair]._replace(Ri=torch.as_tensor(np.asarray(jd.Ri)))
-    rt = t_def.solve_pair("KB8", td, fx.hyper, fx.states[pair], serving.ITERATIONS)
-    assert rt.n_accepted == int(rj.n_accepted) == serving.ITERATIONS
-    assert abs(float(rt.cost) / float(rj.cost) - 1) < 1e-4
+@pytest.mark.parametrize("n_points,pair,iterations", [
+    pytest.param(serving.POINTS, 1, serving.ITERATIONS, id="1"),
+    pytest.param(serving.POINTS, 8, serving.ITERATIONS, id="8"),
+    pytest.param(serving.BLOCK_POINTS, 10, serving.BLOCK_ITERATIONS, id="block-10"),
+])
+def test_free_rotations_are_the_gap_to_jax(monkeypatch, n_points, pair, iterations):
+    """Some vertices of the serving fixtures keep one weighted mesh edge
+    (``serving.free_vertices``): any frozen rotation about that edge fits,
+    and each package's SVD picks its own (dense pairs 1 and 8 unpinned end
+    1.3e-2 and 2.2e-2 from JAX after 25 iterations, where every pair
+    without one ends within 7.5e-5). Pinned to JAX's rotations at exactly
+    those vertices, as chip_smoke.py pins the card's fixture, the port's run
+    lands within 1e-4 of JAX's with the same n_accepted: the gap is the
+    free rotations, not the port's arithmetic. Block pair 10 (9 free
+    vertices) runs on the block backend in both packages, the budget patched
+    to 1 as in test_solve_pairs_block_branch_matches_jax."""
+    datas, states, _, _, jh = _jax_fixture(n_points)
+    free = serving.serving_batch(n_points, device="cpu").free
+    assert free[pair] and (n_points != serving.POINTS or not free[0])
+    fx = serving.serving_batch(n_points, device="cpu", rotations=_jax_free_rotations(datas, free))
+    if n_points == serving.POINTS:
+        rj = j_def.solve_pair("KB8", datas[pair], jh, states[pair], iterations)
+        rt = t_def.solve_pair("KB8", fx.datas[pair], fx.hyper, fx.states[pair], iterations)
+        acc_j, acc_t, cost_j, cost_t = int(rj.n_accepted), rt.n_accepted, float(rj.cost), float(rt.cost)
+    else:
+        monkeypatch.setattr(j_def, "DENSE_J_BUDGET_BYTES", 1)
+        monkeypatch.setattr(t_def, "DENSE_J_BUDGET_BYTES", 1)
+        one = lambda x: jax.tree_util.tree_map(lambda a: jnp.asarray(a)[None], x)
+        rj = j_def.solve_pairs("KB8", one(datas[pair]), jh, one(states[pair]), iterations)
+        rt = t_def.solve_pairs("KB8", t_lm.stack([fx.datas[pair]]), fx.hyper, t_lm.stack([fx.states[pair]]),
+                               iterations)
+        acc_j, acc_t = int(rj.n_accepted[0]), int(rt.n_accepted[0])
+        cost_j, cost_t = float(rj.cost[0]), float(rt.cost[0])
+    assert acc_t == acc_j == iterations
+    assert abs(cost_t / cost_j - 1) < 1e-4
 
 
 @pytest.mark.parametrize("n,K,batch", [(128, 32, 16), (240, 32, 1), (240, 32, 16), (680, 32, 1),
@@ -297,8 +316,8 @@ def test_serving_fixture_draws_bench_pairs(n_points):
     5e-5 where the weighted covariance is well conditioned (its second
     singular value over 1e-2 of the first: an f32 fit is good to about
     eps x 100; 1.2e-5 read at 680 points); a vertex with a single neighbour of
-    non-zero cot weight (a rank-1 weighted covariance; 5 of the 2,048 at 128
-    points) may turn freely about that edge, and the two packages' f32 SVDs
+    non-zero cot weight (a rank-1 weighted covariance; 8 of the 2,048 at 128
+    points, in 6 pairs) may turn freely about that edge, and the two packages' f32 SVDs
     pick different members. Its edge energies see only the aligned
     direction, so the ARAP energies agree within 1e-5 of the largest and the
     initial cost within 1e-6 relative (1.1e-6 and 2e-7 read)."""
@@ -324,7 +343,7 @@ def test_serving_fixture_draws_bench_pairs(n_points):
     assert fx.kept == kept and len(kept) == serving.BATCH
     assert fx.data.kp1.shape == (len(kept), n_points, 2)
     n_free = 0
-    for td, ts, jd, (p1, p2) in zip(fx.datas, fx.states, datas, draws):
+    for td, ts, jd, (p1, p2), fv in zip(fx.datas, fx.states, datas, draws, fx.free):
         np.testing.assert_array_equal(td.nbr.numpy(), np.asarray(jd.nbr))
         np.testing.assert_allclose(td.wcot.numpy(), np.asarray(jd.wcot), rtol=1e-6, atol=1e-6)
         np.testing.assert_array_equal(td.kp1.numpy(), np.asarray(jd.kp1))
@@ -333,7 +352,8 @@ def test_serving_fixture_draws_bench_pairs(n_points):
         e1, e2 = p1[j] - p1[:, None], p2[j] - p2[:, None]
         S = np.einsum("nk,nka,nkb->nab", w * (nbr >= 0), e1, e2)
         sv = np.linalg.svd(S, compute_uv=False)
-        n_free += int((sv[:, 1] <= 1e-9 * sv[:, 0]).sum())
+        assert fv == np.flatnonzero(sv[:, 1] <= 1e-9 * sv[:, 0]).tolist()
+        n_free += len(fv)
         well = sv[:, 1] > 1e-2 * sv[:, 0]
         np.testing.assert_allclose(td.Ri.numpy()[well], np.asarray(jd.Ri)[well], atol=5e-5)
         js = j_def.PairState(p1=jnp.asarray(p1, jnp.float32), p2=jnp.asarray(p2, jnp.float32),
@@ -439,12 +459,48 @@ def _jax_fixture(n_points):
     return datas, states, stack(datas), stack(states), hyper
 
 
+def _jax_free_rotations(datas, free):
+    """JAX's frozen rotations at each pair's free vertices, in the form
+    ``serving.serving_batch(rotations=...)`` takes."""
+    return {i: {v: [float(a) for a in np.asarray(datas[i].Ri)[v].reshape(-1)] for v in fv}
+            for i, fv in enumerate(free) if fv}
+
+
+def _weak_pcg_mutants(n_points, rotations, jax_cost):
+    """The block branch with the port's plain PCG weakened (capped at 8
+    iterations, stopped at rtol 0.1, steps scaled by 0.99 and 0.9): per
+    mutant, the pairs whose cost after BLOCK_ITERATIONS lies over 1e-2 (the
+    card's TIED_RTOL) from JAX's."""
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+    fx = serving.serving_batch(n_points, device="cpu", rotations=rotations)
+    plain = block_pcg.pcg_block_system_plain
+    for name, cap, rtol, scale in (("cap 8", 8, None, 1.0), ("rtol 0.1", None, 0.1, 1.0),
+                                   ("step x 0.99", None, None, 0.99), ("step x 0.9", None, None, 0.9)):
+        def weak(sys_, nbr, b, lam, iters, r, cap=cap, rtol=rtol, scale=scale):
+            x, k = plain(sys_, nbr, b, lam, cap or iters, rtol or r)
+            return x * scale, k
+        block_pcg.pcg_block_system_plain = weak
+        try:
+            rt = t_def.solve_pairs("KB8", fx.data, fx.hyper, fx.state, serving.BLOCK_ITERATIONS)
+        finally:
+            block_pcg.pcg_block_system_plain = plain
+        rel = np.abs(rt.cost.numpy().astype(np.float64) / np.asarray(jax_cost) - 1)
+        print(f"# mutant {name}: {int((rel > 1e-2).sum())} of {len(rel)} block pairs over 1e-2 from JAX "
+              f"(largest {rel.max():.3e})")
+
+
 def _main(argv):
     port = "--port" in argv
     for label, n, iters, pipelined in (("DENSE", serving.POINTS, serving.ITERATIONS, True),
                                        ("BLOCK", serving.BLOCK_POINTS, serving.BLOCK_ITERATIONS, False)):
         datas, states, bd, bs, hyper = _jax_fixture(n)
-        fx = serving.serving_batch(n, device="cpu") if port else None
+        rotations = _jax_free_rotations(datas, serving.serving_batch(n, device="cpu").free)
+        print(f"JAX_SERVING_{label}_FREE_RI = {{")
+        for i, rs in rotations.items():
+            print(f"    {i}: {rs!r},")
+        print("}")
+        fx = serving.serving_batch(n, device="cpu", rotations=rotations) if port else None
         # After TIED_ITERATIONS the runs are still tied; the full budget.
         for suffix, it in (("_TIED", TIED_ITERATIONS), ("", iters)):
             rj = j_def.solve_pairs("KB8", bd, hyper, bs, it)
@@ -455,12 +511,11 @@ def _main(argv):
                 rt = t_def.solve_pairs("KB8", fx.data, fx.hyper, fx.state, it)
                 tc = rt.cost.numpy().astype(np.float64)
                 print(f"PORT_CPU_SERVING_{label}{suffix}_COST = {tc.tolist()!r}")
-                rel = np.abs(tc / np.asarray(cost) - 1)
-                free = np.asarray(fx.free) > 0
-                print(f"# {label}{suffix}: port CPU vs JAX, max relative cost spread over pairs without free "
-                      f"rotations {rel[~free].max() if (~free).any() else 0:.3e}, with {rel[free].max() if free.any() else 0:.3e} "
-                      f"(free per pair {fx.free}); n_accepted equal: "
+                print(f"# {label}{suffix}: port CPU (JAX's free rotations pinned) vs JAX, max relative cost "
+                      f"spread {np.abs(tc / np.asarray(cost) - 1).max():.3e}; n_accepted equal: "
                       f"{rt.n_accepted.tolist() == [int(a) for a in np.asarray(rj.n_accepted)]}")
+        if "--mutants" in argv and not pipelined:
+            _weak_pcg_mutants(n, rotations, cost)
         if pipelined:
             rp = j_def.solve_pairs_pipelined("KB8", datas, hyper, states, iters)
             print(f"JAX_SERVING_{label}_PIPELINED_COST = {[float(r.cost) for r in rp]!r}")

@@ -155,6 +155,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Row `row` of system a's refinement residual b = (-g - (H + lam I) x0) s,
+// by one warp (lane: the thread's lane).
+__device__ __forceinline__ void residual_row(const Sys& a, int n, int row, int lane) {
+  if (row >= n) {
+    if (lane == 0) a.b[row] = 0.0f;
+    return;
+  }
+  const float lam = a.lam;
+  const float* h = a.H + (size_t)row * n;
+  float acc = 0.0f;
+  for (int j = lane; j < n; j += 32) acc += __ldcs(h + j) * __ldcg(a.x0 + j);
+  acc = warp_sum(acc);
+  if (lane == 0) a.b[row] = (-a.g[row] - (acc + lam * __ldcg(a.x0 + row))) * __ldcg(a.s + row);
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
@@ -389,11 +404,11 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
       S.b[i] = 0.0f;
     }
   }
-  for (int u = blockIdx.x; u < B * ntri; u += G) {
-    const int k = u / ntri;
+  for (int t = blockIdx.x; t < B * ntri; t += G) {
+    const int k = t / ntri;
     const Sys S = system_of(a, k);
     int bi, bj;
-    tri_index(u - k * ntri, bi, bj);
+    tri_index(t - k * ntri, bi, bj);
     if (tid < 2 * T) {
       const int idx = (tid < T ? bi : bj) * T + (tid & (T - 1));
       sc[tid] = idx < n ? rsqrtf(fmaxf(__ldcs(S.H + (size_t)idx * n + idx) + S.lam, TINY)) : 1.0f;
@@ -433,8 +448,8 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
     const size_t cc = (size_t)c * T, kk = cc - T;  // kk: column of panel c-1
     const int ncol = NB - c;                       // column jobs of a system: tiles (c + t, c)
     const int ncols = B * ncol;
-    for (int u = blockIdx.x; u < ncols; u += G) {
-      const int k = u / ncol, t = u - k * ncol;
+    for (int job = blockIdx.x; job < ncols; job += G) {
+      const int k = job / ncol, t = job - k * ncol;
       const Sys S = system_of(a, k);
       const size_t i0 = cc + (size_t)t * T;
       // P0 = L_{c,c-1}, Q0 = L_{i,c-1}, Q1 = A_cc, P1 = A_ic
@@ -452,15 +467,15 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
         float acc[2][2];
         tile_dot(P0, P0, acc);
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
+        for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) Q1[(ty + 16 * p) * TS + tx + 16 * v] -= acc[p][v];
+          for (int v = 0; v < 2; ++v) Q1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
         if (t > 0) {
           tile_dot(Q0, P0, acc);
 #pragma unroll
-          for (int p = 0; p < 2; ++p)
+          for (int u = 0; u < 2; ++u)
 #pragma unroll
-            for (int v = 0; v < 2; ++v) P1[(ty + 16 * p) * TS + tx + 16 * v] -= acc[p][v];
+            for (int v = 0; v < 2; ++v) P1[(ty + 16 * u) * TS + tx + 16 * v] -= acc[u][v];
         }
         __syncthreads();
       }
@@ -499,11 +514,11 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
         float acc[2][2];
         tile_dot(P1, Inv, acc);  // L_ic[r][q] = sum_m A_ic[r][m] Linv_c[q][m]
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
+        for (int u = 0; u < 2; ++u) {
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
-            S.L[(i0 + ty + 16 * p) * npad + cc + tx + 16 * v] = acc[p][v];
-            Tb[(tx + 16 * v) * TS + ty + 16 * p] = acc[p][v];
+            S.L[(i0 + ty + 16 * u) * npad + cc + tx + 16 * v] = acc[u][v];
+            Tb[(tx + 16 * v) * TS + ty + 16 * u] = acc[u][v];
           }
         }
         __syncthreads();
@@ -528,8 +543,8 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
     const int nu = c > 0 ? mm * (mm + 1) / 2 : 0;
     const int njobs = B * nu;
     const int stride = G > ncols ? G - ncols : G;
-    int u = G > ncols ? (int)blockIdx.x - ncols : (int)blockIdx.x;
-    if (u >= 0 && u < njobs) {
+    int t = G > ncols ? (int)blockIdx.x - ncols : (int)blockIdx.x;
+    if (t >= 0 && t < njobs) {
       auto stage_job = [&](int job, float* P, float* Q) {
         if (job < njobs) {
           const int k = job / nu;
@@ -541,29 +556,29 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
         }
         cp_async_commit();
       };
-      stage_job(u, P0, Q0);
-      for (int st = 0; u < njobs; u += stride, st ^= 1) {
+      stage_job(t, P0, Q0);
+      for (int st = 0; t < njobs; t += stride, st ^= 1) {
         float* const P = st ? P1 : P0;
         float* const Q = st ? Q1 : Q0;
-        stage_job(u + stride, st ? P0 : P1, st ? Q0 : Q1);
-        const int k = u / nu;
+        stage_job(t + stride, st ? P0 : P1, st ? Q0 : Q1);
+        const int k = t / nu;
         int i, j;
-        tri_index(u - k * nu, i, j);
+        tri_index(t - k * nu, i, j);
         float* const out =
             a.L + (size_t)k * npad * npad + (cc + (size_t)(i + 1) * T) * npad + cc + (size_t)(j + 1) * T;
         float o[2][2];
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
+        for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) o[p][v] = __ldcg(out + (size_t)(ty + 16 * p) * npad + tx + 16 * v);
+          for (int v = 0; v < 2; ++v) o[u][v] = __ldcg(out + (size_t)(ty + 16 * u) * npad + tx + 16 * v);
         cp_async_wait<1>();
         __syncthreads();
         float acc[2][2];
         tile_dot(P, i == j ? P : Q, acc);
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
+        for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * p) * npad + tx + 16 * v] = o[p][v] - acc[p][v];
+          for (int v = 0; v < 2; ++v) out[(size_t)(ty + 16 * u) * npad + tx + 16 * v] = o[u][v] - acc[u][v];
         __syncthreads();
       }
       cp_async_wait<0>();
@@ -588,17 +603,8 @@ __global__ void __launch_bounds__(THREADS, 2) damped_solve_kernel(Args a) {
 
   // ---- b = (-g - (H + lam I) x0) s, one warp per row of the batch ------------
   for (int e = blockIdx.x * (THREADS / 32) + warp; e < B * npad; e += G * (THREADS / 32)) {
-    const int k = e / npad, row = e - k * npad;
-    const Sys S = system_of(a, k);
-    if (row >= n) {
-      if (lane == 0) S.b[row] = 0.0f;
-      continue;
-    }
-    const float* h = S.H + (size_t)row * n;
-    float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc += __ldcs(h + j) * __ldcg(S.x0 + j);
-    acc = warp_sum(acc);
-    if (lane == 0) S.b[row] = (-S.g[row] - (acc + S.lam * __ldcg(S.x0 + row))) * __ldcg(S.s + row);
+    const int k = e / npad;
+    residual_row(system_of(a, k), n, e - k * npad, lane);
   }
   grid.sync();
   if (stamp) a.stamps[4] = now_ns();

@@ -16,10 +16,11 @@ builds (``tests/test_torch_serving.py`` holds the draws to it).
 ``serving_batch(n_points)`` returns the per-pair lists (what
 ``solve_pairs_pipelined`` takes) and the stacked batch (what
 ``solve_pairs`` takes), on ``device``: cuda unless the caller asks for the
-CPU (``device.resolve_device``), and per pair the count of vertices whose
-frozen rotation the draw leaves free (``free_rotations``: the pixels are
-drawn apart from the points, and some boundary vertices keep a single
-weighted edge).
+CPU (``device.resolve_device``), and per pair the vertices whose frozen
+rotation the draw leaves free (``free_vertices``: the pixels are drawn
+apart from the points, and some boundary vertices keep a single weighted
+edge). ``rotations`` pins those: given another package's frozen rotations
+at the free vertices, every pair is that package's problem.
 """
 
 from __future__ import annotations
@@ -59,23 +60,23 @@ class ServingBatch(NamedTuple):
     data: deformable.PairData  # stacked: leading pair axis
     state: deformable.PairState
     kept: list  # indices of the kept draws
-    free: list  # per pair: vertices whose frozen rotation is not determined (free_rotations)
+    free: list  # per pair: the vertices whose frozen rotation is not determined (free_vertices)
 
 
-def free_rotations(p1, p2, nbr, wcot) -> int:
+def free_vertices(p1, p2, nbr, wcot) -> list:
     """Vertices whose frozen ARAP rotation the pair leaves undetermined: the
     weighted covariance that ``arap.compute_rotations`` fits (cot weights
     of the mesh edges times p1 and p2 edge vectors) has rank below 2, as at
     a vertex with one neighbour of non-zero weight. Any rotation about that
     edge fits, each package's SVD picks its own, and the pair's energy
     depends on the pick once its edges turn: such a pair is a different
-    problem on each device."""
+    problem on each device. Returns their indices."""
     nbr = np.asarray(nbr)
     j = np.maximum(nbr, 0)
     w = np.asarray(wcot, np.float64) * (nbr >= 0)
     S = np.einsum("nk,nka,nkb->nab", w, p1[:, None] - p1[j], p2[:, None] - p2[j])
     sv = np.linalg.svd(S, compute_uv=False)
-    return int((sv[:, 1] <= 1e-9 * sv[:, 0]).sum())
+    return np.flatnonzero(sv[:, 1] <= 1e-9 * sv[:, 0]).tolist()
 
 
 def draw_pairs(n_points: int = POINTS, batch: int = BATCH, seed: int = 0):
@@ -90,10 +91,13 @@ def draw_pairs(n_points: int = POINTS, batch: int = BATCH, seed: int = 0):
     return draws
 
 
-def serving_batch(n_points: int = POINTS, batch: int = BATCH, seed: int = 0, device="cuda") -> ServingBatch:
+def serving_batch(n_points: int = POINTS, batch: int = BATCH, seed: int = 0, device="cuda",
+                  rotations=None) -> ServingBatch:
     """The serving fixture on ``device``: the draws whose mesh degree bucket
     is DEGREE_BUCKET, each as PairData and its initial PairState, and the
-    shared Hyper."""
+    shared Hyper. ``rotations`` ({kept pair: {vertex: 9 floats, row-major}})
+    replaces the frozen rotations at exactly each pair's free vertices; it
+    raises if it names other vertices."""
     dev = resolve_device(device)
     datas, states, kept, free = [], [], [], []
     eye = np.eye(3)
@@ -105,6 +109,15 @@ def serving_batch(n_points: int = POINTS, batch: int = BATCH, seed: int = 0, dev
         )
         if d.nbr.shape[1] != DEGREE_BUCKET:
             continue
+        fv = free_vertices(p1, p2, d.nbr.cpu().numpy(), d.wcot.cpu().numpy())
+        if rotations is not None:
+            pins = rotations.get(len(datas), {})
+            if sorted(pins) != fv:
+                raise ValueError(f"pair {len(datas)}: rotations for vertices {sorted(pins)}, free vertices {fv}")
+            if pins:
+                Ri = d.Ri.clone()
+                Ri[fv] = torch.as_tensor([pins[v] for v in fv], dtype=FP, device=dev).reshape(-1, 3, 3)
+                d = d._replace(Ri=Ri)
         t = lambda x: torch.as_tensor(np.asarray(x), dtype=FP, device=dev)
         datas.append(d)
         states.append(deformable.PairState(
@@ -112,6 +125,6 @@ def serving_batch(n_points: int = POINTS, batch: int = BATCH, seed: int = 0, dev
             tg=torch.zeros(3, dtype=FP, device=dev),
         ))
         kept.append(i)
-        free.append(free_rotations(p1, p2, d.nbr.cpu().numpy(), d.wcot.cpu().numpy()))
+        free.append(fv)
     hyper = deformable.Hyper(**{k: torch.tensor(v, dtype=FP, device=dev) for k, v in HYPER.items()})
     return ServingBatch(datas, states, hyper, lm_ops.stack(datas), lm_ops.stack(states), kept, free)

@@ -14,7 +14,8 @@ bound and design.
 - ``damped_solve_batched_cuda`` solves a batch of systems of one dim (the
   serving path's ``vmap`` of the JAX contract, ``deformable.py:884`` there)
   in ONE launch of the same kernel, every member bit for bit the single
-  launch's result. ``LAUNCHES_BATCHED`` counts its calls, and
+  launch's result. Both go through the kernel's batched entry (a single
+  solve is a batch of one). ``LAUNCHES_BATCHED`` counts its calls, and
   ``LAUNCHES_BATCHED_BY_SHAPE`` by (batch, dim).
 - ``solve_damped_cholesky_plain`` is the same formula in torch
   (``cholesky_ex`` + ``cholesky_solve``). It returns NaN where the
@@ -77,31 +78,10 @@ def damped_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Tensor:
     the card, lam a float or a one-element tensor. Launches on the current
     stream and does not synchronise."""
     global LAUNCHES
-    if H.device.type != "cuda" or g.device != H.device:
-        raise ValueError("damped_solve_cuda takes H and g on one CUDA device")
-    if H.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("damped_solve_cuda takes float32 H and g")
-    n = H.shape[0]
-    if H.ndim != 2 or H.shape[1] != n or g.shape != (n,):
+    n = g.shape[0] if g.ndim == 1 else -1
+    if H.shape != (n, n):
         raise ValueError(f"shapes H {tuple(H.shape)} and g {tuple(g.shape)} do not form one system")
-    lib = _load()
-    H = H.contiguous()
-    g = g.contiguous()
-    lam_t = _nvcc.lam_tensor(lam, H)
-    npad = lib.tids_damped_solve_pad(n)
-    opts = dict(dtype=torch.float32, device=H.device)
-    x = torch.empty(n, **opts)
-    L = torch.empty(npad * npad, **opts)
-    Linv = torch.empty(npad * 32, **opts)
-    vecs = torch.empty(4, npad, **opts)  # s, b, y, x0
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    err = lib.tids_damped_solve(
-        H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), n,
-        L.data_ptr(), Linv.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-        vecs[2].data_ptr(), vecs[3].data_ptr(), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"damped-Cholesky kernel launch failed: cudaError_t {err}")
+    x = _launch("damped_solve_cuda", H[None], g[None], _nvcc.lam_tensor(lam, H))[0]
     LAUNCHES += 1
     LAUNCHES_BY_DIM[n] += 1
     return x
@@ -113,19 +93,30 @@ def damped_solve_batched_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Te
     anything of B values). Launches on the current stream and does not
     synchronise."""
     global LAUNCHES_BATCHED
-    if H.device.type != "cuda" or g.device != H.device:
-        raise ValueError("damped_solve_batched_cuda takes H and g on one CUDA device")
-    if H.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("damped_solve_batched_cuda takes float32 H and g")
     if H.ndim != 3 or H.shape[2] != H.shape[1] or g.shape != H.shape[:2] or H.shape[0] == 0:
         raise ValueError(f"shapes H {tuple(H.shape)} and g {tuple(g.shape)} do not form a batch of systems")
+    lam_t = torch.as_tensor(lam, dtype=torch.float32, device=H.device).reshape(-1)
+    x = _launch("damped_solve_batched_cuda", H, g, lam_t)
+    LAUNCHES_BATCHED += 1
+    LAUNCHES_BATCHED_BY_SHAPE[tuple(g.shape)] += 1
+    return x
+
+
+def _launch(name: str, H: torch.Tensor, g: torch.Tensor, lam_t: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel's batched entry (the single solve is B = 1):
+    H [B, n, n], g [B, n], lam_t [B]; raises on anything but f32 tensors on
+    one CUDA device, and when the card refuses the launch."""
+    if H.device.type != "cuda" or g.device != H.device:
+        raise ValueError(f"{name} takes H and g on one CUDA device")
+    if H.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 H and g")
     B, n = g.shape
-    lam_t = torch.as_tensor(lam, dtype=torch.float32, device=H.device).reshape(-1).contiguous()
     if lam_t.numel() != B:
         raise ValueError(f"{lam_t.numel()} damping values for {B} systems")
     lib = _load()
     H = H.contiguous()
     g = g.contiguous()
+    lam_t = lam_t.contiguous()
     npad = lib.tids_damped_solve_pad(n)
     opts = dict(dtype=torch.float32, device=H.device)
     x = torch.empty(B, n, **opts)
@@ -137,9 +128,7 @@ def damped_solve_batched_cuda(H: torch.Tensor, g: torch.Tensor, lam) -> torch.Te
         L.data_ptr(), Linv.data_ptr(), vecs.data_ptr(), _nvcc.stream_ptr(H.device),
     )
     if err != 0:
-        raise RuntimeError(f"batched damped-Cholesky kernel launch failed: cudaError_t {err}")
-    LAUNCHES_BATCHED += 1
-    LAUNCHES_BATCHED_BY_SHAPE[(B, n)] += 1
+        raise RuntimeError(f"damped-Cholesky kernel launch failed ({name}, {B} x {n}): cudaError_t {err}")
     return x
 
 
