@@ -5,6 +5,7 @@ They print readings and check only what is stated; PERF.md cites them.
     python3 chip_diagnostics.py [mutants] [match_mutants] [chol_mutants] [chol_profile] [pcg_profile] [rounding] [profiler]
     python3 chip_diagnostics.py chol_parity=OTHER_damped_cholesky.cu
     python3 chip_diagnostics.py pcg_variants extract_parent=build/parent
+    python3 chip_diagnostics.py halo_mutants
 
 (no argument runs the first seven)
 
@@ -26,6 +27,10 @@ They print readings and check only what is stated; PERF.md cites them.
   its lam x0 term, and the grid.sync() between the factorization and the
   first solve removed; each must fail ``chip_smoke.kernel_phase()`` or
   ``refinement_phase()`` (an accuracy or a repeated-call check).
+- ``halo_mutants``: the same for ``parallel/`` (not in the default set):
+  the CG stop test on the rank's own r.r, Hg from the rank's partial sum
+  (before the all-reduce), the boundary rows read before the exchange, the
+  off-shard tail dropped; each must fail ``chip_smoke.parallel_phase()``.
 - ``chol_profile``: kernel 1 at dims 377, 1448, 2591 and 4096 under
   ``torch.profiler`` (launches and device time per solve by CUDA kernel
   name, CUDA events beside them) and its per-phase times from the
@@ -156,6 +161,29 @@ CHOL_MUTANTS = {
     ),
 }
 CHOL_PROBE = "import chip_smoke as c\nc.setup()\nc.kernel_phase()\nc.refinement_phase()\n"
+# The sharded PCG of parallel/ broken in one place each; every one must fail
+# chip_smoke.parallel_phase() (phase 20), as it fails tests/test_torch_parallel.py
+# on the CPU. Keyed by the package file they edit.
+HALO_MUTANTS = {
+    "parallel/dist.py": {
+        # The stop test on the rank's own r.r: ranks leave the CG loop apart
+        # and the next all-reduces pair up wrongly (or wait until the
+        # process group's timeout).
+        "rank_local_stop_test": ("return red[0] + torch.dot(r_g, z_g), red[1] + torch.dot(r_g, r_g)",
+                                 "return red[0] + torch.dot(r_g, z_g), torch.sum(r_p * r_p) + torch.dot(r_g, r_g)"),
+        # Hg (and so its inverse, the global block's preconditioner) from
+        # the rank's own partial sum, before the all-reduce.
+        "hg_before_all_reduce": ("Hg, g_g = red[:64].reshape(8, 8).clone(), red[64:72].clone()",
+                                 "Hg, g_g = sys.Hg.clone(), red[64:72].clone()"),
+    },
+    "parallel/halo.py": {
+        # The boundary rows read from the rank's own buffer, before the
+        # exchange: other ranks' rows read zero.
+        "boundary_before_exchange": ("halo = buf[: nb * 6].reshape(nb, 6)", "halo = halo_in"),
+        "no_off_shard_tail": ("y_p = y_p + tail.sum(dim=1)", "y_p = y_p + 0.0 * tail.sum(dim=1)"),
+    },
+}
+HALO_PROBE = "import chip_smoke as c\nc.setup()\nc.parallel_phase()\n"
 PROBE = r"""
 import torch, chip_smoke as c
 from triangulation_in_deformable_scenes_torch.models import block_system as bs
@@ -176,7 +204,8 @@ c.pcg_case(861)
 
 def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
     """Each broken kernel must fail its probe (kernel 2: chip_smoke.pcg_case(861));
-    ``table`` maps a name to one (old, new) pair or to a tuple of them. Also
+    ``table`` maps a name to one (old, new) pair or to a tuple of them, in
+    ``source`` (a file of ``csrc/``, or a path inside the package). Also
     runs the kernel variants of ``variants``, whose probe prints readings."""
     all_failed = True
     with tempfile.TemporaryDirectory() as tmp:
@@ -185,7 +214,7 @@ def mutants(source="block_pcg.cu", table=MUTANTS, probe=PROBE) -> bool:
             shutil.copytree(os.path.join(c.REPO, PKG), os.path.join(dst, PKG),
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(os.path.join(c.REPO, "chip_smoke.py"), dst)
-            cu = os.path.join(dst, PKG, "csrc", source)
+            cu = os.path.join(dst, PKG, source if "/" in source else os.path.join("csrc", source))
             with open(cu) as f:
                 src = f.read()
             for old, new in (spec if not spec or isinstance(spec[0], tuple) else (spec,)):
@@ -405,6 +434,9 @@ def main(argv):
             ok &= mutants("match_scan.cu", MATCH_MUTANTS, MATCH_PROBE)
         elif name == "chol_mutants":
             ok &= mutants("damped_cholesky.cu", CHOL_MUTANTS, CHOL_PROBE)
+        elif name == "halo_mutants":
+            for source, table in HALO_MUTANTS.items():
+                ok &= mutants(source, table, HALO_PROBE)
         elif name == "rounding":
             rounding()
         elif name == "profiler":

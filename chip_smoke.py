@@ -178,6 +178,34 @@ Phases, each of which must pass (nothing is caught):
    points with 50 outliers gives JAX's mask and pose within 1e-5 (kernel 1
    at dim 6); ``local_bundle_adjustment`` JAX's (n_edges, n_removed).
 
+20. ``parallel/`` (``harness/scaling.py``: the JAX package's scaled pair,
+   bench.py:889-950, 16,384 points, dim 98,312, 5 LM iterations at
+   cg_iters 32, JAX's rotations pinned at its 66 free vertices). The ranks
+   are subprocesses (``parallel/launch.run_ranks`` running
+   ``_parallel_rank``; the multihost worker), each with a wall-clock limit;
+   a rank that exits non-zero fails the phase. The plans' boundary counts
+   equal JAX's; kernel 2 held to its plain version on the pair's first
+   system (``pcg_check``). World 1 on NCCL, alone on the card:
+   ``solve_pair_distributed`` and ``solve_pair_halo`` after 1 and 5
+   iterations, kernel-2 launches equal to the damped solves, no collective,
+   costs within PARALLEL_TIED_RTOL / FINAL_REL_TOL of JAX's and the halo
+   solve within HALO_ONE_SHARD_RTOL of the baseline. Then at once: serving
+   (phase 18's fixture and budget) sharded by pair at world 1 on NCCL;
+   world 2 over gloo on the one card (asked for by name: NCCL takes one
+   card a rank): the halo solve, the baseline on the multihost worker's
+   5 x 5 problem (padded to 26) and on the scaled pair, serving; world 4
+   over gloo: the halo solve; and the multihost worker at 2 ranks in both
+   modes. One sharded damped solve of the pair's first system (halo at
+   worlds 2 and 4, the baseline at 2) takes the plain one-device PCG's
+   iteration count and lands within PCG_SHARDED_RTOL of its x, the same
+   bits on every rank. Every landmark-sharded run: the ranks' costs bit for bit equal,
+   within the limits of JAX's, three all-reduces a CG iteration, the
+   matvec exchange 6 |B| + 8 floats (halo) or 6 N + 8 (baseline), no kernel
+   launched (the sharded PCG is plain torch with collectives). Serving:
+   every pair bit for bit the unsharded ``solve_pairs``', one batched
+   kernel-1 launch a global step on each rank. Walls and exchange sizes are
+   logged; ranks sharing one card measure no scaling.
+
 Then it prints the ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero without a card, and
 when run from a directory that does not hold the package.
@@ -194,6 +222,7 @@ and budget, produced by
     JAX_PLATFORMS=cpu python tests/test_torch_selections.py
     JAX_PLATFORMS=cpu python tests/test_torch_serving.py
     JAX_PLATFORMS=cpu python tests/test_torch_bundle_adjustment.py
+    JAX_PLATFORMS=cpu python tests/test_torch_parallel.py
 
 (the sequence, sweep, serving and BA runs with ``--port`` give the port's
 own CPU values; the ``SEQ_*``, ``SERVING_*`` and ``BA_*`` tolerances are set
@@ -464,6 +493,106 @@ JAX_POSE_ONLY_T = [-0.09999996423721313, 4.697230338024383e-08, -4.2608583328274
 # Local BA on keyframe 1 of the scene's map, one observation moved +50 px.
 LOCAL_BA_ITERATIONS = 10
 JAX_LOCAL_BA = (8000, 1)
+
+# parallel/ (phase 20): the JAX package's scaled pair (bench.py:889-950,
+# virtual_scaling_check(n=16384): harness/scaling.py), 5 LM iterations at
+# cg_iters 32, with JAX's rotations pinned at its 66 free vertices
+# (JAX_SCALING_FREE_RI: {vertex: R row-major}). JAX package, CPU
+# (tests/test_torch_parallel.py run as a script): the unsharded solve
+# (solve_pair_distributed) and the halo solve on 2 and 4 virtual devices
+# after 1 and 5 iterations, and each plan's boundary count. JAX's
+# solve_pair_distributed on 2 or 4 virtual devices departs from its own
+# unsharded run (tests/test_torch_parallel.py says how), so the port's
+# baseline at world 2 is held to JAX's unsharded value (JAX_SCALING_COST),
+# on this pair and on the multihost worker's 5 x 5 problem padded to 26
+# points (JAX_TINY_COST). Held to PARALLEL_TIED_RTOL after one iteration
+# and FINAL_REL_TOL after 5; the halo solve on one rank to
+# HALO_ONE_SHARD_RTOL of the baseline's (the same block step on the
+# Morton-permuted pair).
+PARALLEL_WORLDS = (2, 4)
+PARALLEL_ITERS = (1, 5)
+PARALLEL_TIED_RTOL = 1e-3
+HALO_ONE_SHARD_RTOL = 1e-5
+# One sharded damped solve of the pair's first system (halo at worlds 2
+# and 4, the baseline at 2) against the plain PCG on one device: the same
+# iteration count and x within this of max|x| (the same arithmetic but for
+# the order of the sums).
+PCG_SHARDED_RTOL = 1e-4
+PARALLEL_TIMEOUT_S = 300
+TINY_SIDE = 5
+JAX_SCALING_FREE_RI = {
+    202: [0.008236086927354336, 0.9999661445617676, -0.0003395498206373304, -0.9432895183563232, 0.007882214151322842, 0.3318779170513153, 0.3318694233894348, -0.0024131741374731064, 0.9433223009109497],
+    389: [0.8516618609428406, 0.5141498446464539, -0.10159841924905777, -0.524026095867157, 0.8384736180305481, -0.14952819049358368, 0.008307624608278275, 0.1805877983570099, 0.9835237264633179],
+    566: [-0.5943693518638611, -0.8041783571243286, 0.004739902447909117, 0.7880690693855286, -0.581268310546875, 0.20266756415367126, -0.16022615134716034, 0.12419479340314865, 0.9792361259460449],
+    575: [-0.10842172801494598, -0.9940935373306274, -0.004778370261192322, 0.9861881136894226, -0.10816243290901184, 0.125435933470726, -0.12521186470985413, 0.00888761691749096, 0.9920902252197266],
+    693: [0.4588918089866638, 0.8472672700881958, -0.26750022172927856, -0.770123302936554, 0.22915653884410858, -0.5953128933906555, -0.44308972358703613, 0.479192316532135, 0.7576583623886108],
+    1036: [0.9923166632652283, -0.0360269658267498, 0.11836214363574982, 0.03144635260105133, 0.9986908435821533, 0.04034417122602463, -0.11966082453727722, -0.036312323063611984, 0.9921503663063049],
+    1169: [0.894534707069397, 0.3272245228290558, -0.30451953411102295, -0.304912269115448, 0.9448410868644714, 0.11959980428218842, 0.32685863971710205, -0.0141343604773283, 0.9449675679206848],
+    1365: [-0.9865358471870422, -0.0016675685765221715, 0.16353604197502136, 0.0018010305939242244, -0.999998152256012, 0.0006684694672003388, 0.1635347604751587, 0.0009541777544654906, 0.9865371584892273],
+    1565: [0.986578643321991, -0.1194535419344902, -0.11132834851741791, 0.09606929868459702, 0.975927472114563, -0.19579775631427765, 0.13203726708889008, 0.18247447907924652, 0.9743046164512634],
+    1750: [0.9591372609138489, -0.1718902736902237, -0.22474305331707, 0.14673256874084473, 0.9813302159309387, -0.12433858960866928, 0.2419201284646988, 0.08628065884113312, 0.9664527177810669],
+    1926: [0.9925976991653442, -0.02204463817179203, -0.11943107843399048, 0.02525271661579609, 0.9993579983711243, 0.025414541363716125, 0.11879416555166245, -0.028242478147149086, 0.9925171732902527],
+    2132: [-0.6826220154762268, -0.684975802898407, -0.2546272277832031, 0.7294811606407166, -0.659409761428833, -0.18175727128982544, -0.043404530733823776, -0.309817373752594, 0.9498047232627869],
+    2389: [-0.7539597749710083, -0.5440495014190674, 0.36817699670791626, 0.32000410556793213, -0.7936365008354187, -0.5174344778060913, 0.5737088322639465, -0.27230679988861084, 0.7724683880805969],
+    2465: [-0.989428699016571, 0.11410240083932877, 0.08950549364089966, -0.10406622290611267, -0.9884955883026123, 0.10975572466850281, 0.10099921375513077, 0.09928115457296371, 0.9899203777313232],
+    2516: [0.9831298589706421, -0.16783450543880463, 0.07271227240562439, 0.16120676696300507, 0.9828935265541077, 0.08906662464141846, -0.08641716837882996, -0.07584259659051895, 0.9933677911758423],
+    3280: [0.991776168346405, -0.018878815695643425, -0.12658482789993286, 0.016532575711607933, 0.9996721148490906, -0.019561421126127243, 0.1269126534461975, 0.017307741567492485, 0.9917629361152649],
+    3445: [0.3158717751502991, 0.9472939372062683, 0.05347057059407234, -0.868201732635498, 0.3113098442554474, -0.3864087760448456, -0.3826887607574463, 0.07563235610723495, 0.9207763075828552],
+    3937: [-0.8624240756034851, -0.49148446321487427, 0.12111079692840576, 0.5050603747367859, -0.8514637351036072, 0.14115071296691895, 0.03374828025698662, 0.18290001153945923, 0.9825522303581238],
+    4449: [-0.8097851872444153, -0.5853698253631592, 0.03987796977162361, 0.5859769582748413, -0.8034452795982361, 0.10539171099662781, -0.029653236269950867, 0.10871211439371109, 0.9936309456825256],
+    4584: [0.9603312611579895, 0.21110643446445465, 0.1822022646665573, -0.23784376680850983, 0.961167573928833, 0.13995489478111267, -0.14558161795139313, -0.17773887515068054, 0.973249614238739],
+    4788: [-0.973455548286438, -0.19602319598197937, -0.11814980953931808, 0.19910398125648499, -0.9798675179481506, -0.014745783060789108, -0.1128806620836258, -0.03787834569811821, 0.9928863644599915],
+    5353: [0.99629807472229, 0.006333081983029842, -0.08573035150766373, -0.01597285456955433, 0.9935536980628967, -0.11223162710666656, 0.08446695655584335, 0.11318551748991013, 0.9899769425392151],
+    5545: [0.8051074147224426, 0.04398106783628464, 0.5914957523345947, -0.4731816351413727, 0.6489254832267761, 0.5958143472671509, -0.35763227939605713, -0.7595797181129456, 0.5432658791542053],
+    5790: [-0.8374955654144287, 0.13732661306858063, -0.528907060623169, -0.039248090237379074, -0.9805238842964172, -0.19243821501731873, -0.5450329780578613, -0.14040760695934296, 0.8265743851661682],
+    6035: [-0.9917668104171753, -0.11159699410200119, 0.06280510872602463, 0.10950616747140884, -0.9933405518531799, -0.0358114056289196, 0.06638339161872864, -0.02863924205303192, 0.9973829984664917],
+    6123: [-0.9874252080917358, -0.11580438166856766, -0.10761570185422897, 0.1214790865778923, -0.9914451241493225, -0.047742024064064026, -0.10116645693778992, -0.06021493300795555, 0.9930455684661865],
+    6217: [0.007080720737576485, -0.9980356097221375, -0.06225203350186348, 0.9759871959686279, 0.02045099064707756, -0.21686610579490662, 0.2177133858203888, -0.059221651405096054, 0.9742143154144287],
+    6432: [-0.649242103099823, -0.3561178743839264, 0.6720600128173828, -0.09868970513343811, -0.8366993069648743, -0.5386974215507507, 0.7541520595550537, -0.4160704016685486, 0.5080753564834595],
+    6501: [0.13570325076580048, 0.9836241006851196, 0.11861098557710648, -0.9359037280082703, 0.08798936754465103, 0.34109023213386536, 0.32506799697875977, -0.15729564428329468, 0.9325175285339355],
+    6504: [-0.9516705274581909, -0.30020958185195923, -0.06478925794363022, 0.3039098381996155, -0.9509541988372803, -0.057666514068841934, -0.04429960623383522, -0.0745697170495987, 0.9962313771247864],
+    6528: [-0.13801902532577515, -0.99042147397995, -0.003986391704529524, 0.9900962114334106, -0.1380758434534073, 0.025387993082404137, -0.02569517493247986, -0.00044292278471402824, 0.9996697902679443],
+    6570: [-0.8540119528770447, -0.5155956149101257, -0.06946023553609848, 0.5144333839416504, -0.8568125367164612, 0.03507747873663902, -0.07760017365217209, -0.00577603280544281, 0.9969677925109863],
+    7158: [-0.09648681432008743, 0.9923999905586243, -0.07636938244104385, -0.9777824878692627, -0.10885141044855118, -0.17914386093616486, -0.1860952377319336, 0.05738763138651848, 0.9808541536331177],
+    7551: [0.9672842621803284, -0.1937437206506729, 0.16378270089626312, 0.19123686850070953, 0.9810514450073242, 0.031091222539544106, -0.1667029708623886, 0.0012472872622311115, 0.9860064387321472],
+    8055: [-0.45454466342926025, 0.8905733823776245, -0.01637905463576317, -0.8892865180969238, -0.45477867126464844, -0.048435620963573456, -0.05058415234088898, -0.007450428791344166, 0.998691976070404],
+    8099: [-0.6889503598213196, -0.7248021364212036, -0.0030174062121659517, 0.7223058938980103, -0.6869112849235535, 0.08016612380743027, -0.060177382081747055, 0.05305099859833717, 0.9967768788337708],
+    8365: [-0.9564476013183594, -0.22660177946090698, 0.18401117622852325, 0.2446177452802658, -0.9661744832992554, 0.08166433870792389, 0.1592819094657898, 0.12311995029449463, 0.9795259237289429],
+    9049: [-0.9568002223968506, 0.22304241359233856, -0.18650788068771362, -0.26848554611206055, -0.9239689111709595, 0.2723904252052307, -0.11157291382551193, 0.3106980621814728, 0.9439375400543213],
+    9175: [0.9805794358253479, -0.11938335746526718, 0.15560032427310944, 0.11031322926282883, 0.991722583770752, 0.06570850312709808, -0.16215695440769196, -0.04726744815707207, 0.9856322407722473],
+    9299: [-0.9943252205848694, -0.09086918085813522, 0.055321767926216125, 0.10202398896217346, -0.9618571996688843, 0.2538158893585205, 0.03014754317700863, 0.2580195963382721, 0.9656692743301392],
+    9475: [0.9163326025009155, -0.008862795308232307, -0.40031981468200684, 0.006792027037590742, 0.9999550580978394, -0.006591560784727335, 0.4003604054450989, 0.003320873947814107, 0.9163515567779541],
+    9487: [0.5983086228370667, 0.7921512722969055, -0.12051016092300415, -0.759103536605835, 0.6085230112075806, 0.23121733963489532, 0.256492555141449, -0.046859677881002426, 0.9654095768928528],
+    9770: [0.9807153344154358, -0.19543856382369995, 0.0010766336927190423, 0.1954377293586731, 0.9807159304618835, 0.0008089671027846634, -0.0012140213511884212, -0.000582851585932076, 0.9999991059303284],
+    9935: [0.6678119897842407, 0.743020236492157, 0.04413799196481705, -0.7354838252067566, 0.6678289771080017, -0.11431626975536346, -0.1144162192940712, 0.04387892037630081, 0.9924635291099548],
+    10370: [-0.3651007115840912, 0.0009986653458327055, 0.9309676289558411, -0.007099579554051161, -0.9999733567237854, -0.0017116125673055649, 0.9309412240982056, -0.007234454620629549, 0.36509791016578674],
+    10475: [0.00839997548609972, 0.9793869256973267, 0.20181816816329956, -0.9970217347145081, -0.007269847672432661, 0.07677663862705231, 0.07666130363941193, -0.20186202228069305, 0.9764090776443481],
+    10622: [-0.9704812169075012, 0.11648209393024445, 0.21118229627609253, -0.17744965851306915, -0.9378766417503357, -0.29815876483917236, 0.16333319246768951, -0.3268316984176636, 0.93086177110672],
+    11142: [-0.8768650889396667, -0.39855048060417175, -0.2688218653202057, 0.31342366337776184, -0.8979542851448059, 0.30893999338150024, -0.3645181655883789, 0.18664343655109406, 0.9123000502586365],
+    11289: [0.8526697754859924, 0.5053611993789673, 0.1325310915708542, -0.43585720658302307, 0.82794588804245, -0.3528943657875061, -0.28806746006011963, 0.24313776195049286, 0.9262294769287109],
+    11319: [0.9915242791175842, -0.09769874811172485, -0.08564268797636032, 0.0924978032708168, 0.9937347173690796, -0.06273410469293594, 0.09123525768518448, 0.054280634969472885, 0.9943488836288452],
+    11358: [-0.8956328630447388, -0.1141083762049675, 0.42990827560424805, 0.25125735998153687, -0.9273465275764465, 0.2773059904575348, 0.36703112721443176, 0.35638177394866943, 0.8592326045036316],
+    11533: [-0.9623112082481384, 0.038268715143203735, -0.2692447006702423, -0.028856715187430382, -0.9988290071487427, -0.038830600678920746, -0.2704155147075653, -0.029597830027341843, 0.9622885584831238],
+    12244: [0.6504004001617432, -0.7063599824905396, 0.2793472707271576, 0.7443993091583252, 0.5195393562316895, -0.4194624722003937, 0.15115949511528015, 0.48076435923576355, 0.8637225031852722],
+    12798: [-0.7313899993896484, -0.674192488193512, 0.1026296392083168, 0.6600213050842285, -0.7376642227172852, -0.142208069562912, 0.17158205807209015, -0.03627187758684158, 0.9845017194747925],
+    13060: [-0.9371352195739746, 0.026286564767360687, -0.34797507524490356, -0.018524812534451485, -0.9995003342628479, -0.02561478316783905, -0.3484747111797333, -0.01755836047232151, 0.9371537566184998],
+    13238: [0.6705851554870605, -0.7068353295326233, 0.22516492009162903, 0.3213232457637787, 0.0031854365952312946, -0.9469641447067261, 0.6686307191848755, 0.7073708772659302, 0.22925877571105957],
+    13464: [0.2579245865345001, 0.9480139017105103, 0.18639925122261047, -0.899663507938385, 0.3059979975223541, -0.3114018440246582, -0.3522511422634125, -0.08737841248512268, 0.9318175911903381],
+    14021: [0.45216479897499084, 0.8841079473495483, 0.1178991049528122, -0.8604688048362732, 0.3975856304168701, 0.31862032413482666, 0.23481954634189606, -0.24551740288734436, 0.9405215382575989],
+    14301: [-0.9939635992050171, -0.04615965113043785, -0.09952740371227264, 0.06832217425107956, -0.9702317714691162, -0.2323405146598816, -0.08584000915288925, -0.23773807287216187, 0.967528760433197],
+    14480: [-0.8887030482292175, -0.43563947081565857, -0.14291705191135406, 0.4578479826450348, -0.8596606254577637, -0.22662538290023804, -0.02413340099155903, -0.26683685183525085, 0.9634396433830261],
+    14915: [-0.9429594278335571, -0.32974085211753845, -0.04581422358751297, 0.3275672495365143, -0.943555474281311, 0.04902197793126106, -0.05939282849431038, 0.03121824562549591, 0.9977465867996216],
+    15701: [0.5926065444946289, -0.7992411851882935, -0.10015449672937393, 0.7816675901412964, 0.5405983924865723, 0.3110455870628357, -0.19445697963237762, -0.2626151442527771, 0.9451030492782593],
+    15814: [0.9107654690742493, 0.13273034989833832, -0.3910098373889923, 0.0672752782702446, 0.8865801095962524, 0.4576566219329834, 0.4074064791202545, -0.4431232213973999, 0.7985373735427856],
+    15918: [-0.9853736162185669, -0.1317560225725174, -0.10807016491889954, 0.14939366281032562, -0.9730066657066345, -0.17589625716209412, -0.0819777175784111, -0.18946857750415802, 0.97845858335495],
+    16177: [0.9750863909721375, 0.010885435156524181, -0.22155851125717163, 0.004534788429737091, 0.9976082444190979, 0.06897260993719101, 0.22177959978580475, -0.06825917959213257, 0.9727045893669128],
+    16218: [0.8837022185325623, -0.29265880584716797, -0.3652685880661011, 0.2573942244052887, 0.9556700587272644, -0.14297837018966675, 0.39092013239860535, 0.0323324128985405, 0.9198565483093262],
+}
+JAX_SCALING_N_BOUNDARY = {2: 492, 4: 1168}
+JAX_SCALING_COST = {1: 134073656.0, 5: 77040104.0}
+JAX_SCALING_HALO_COST = {(2, 1): 134073648.0, (2, 5): 77039712.0,
+                         (4, 1): 134073640.0, (4, 5): 77039680.0}
+JAX_TINY_COST = {1: 115.27557373046875, 5: 8.047013282775879}
 
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -1141,7 +1270,7 @@ def pcg_check(label, sys_, nbr, b, lam):
         + " ".join(f"{name}={v:.5f}" for name, v in path_split.items())
         + " | per iteration (us): " + " ".join(f"{name}={v:.3f}" for name, v in per_it.items()))
     return dict(dim=dim, iterations=k, max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, host_us=wrapper_us)
 
 
 def pcg_stride_case():
@@ -1968,7 +2097,7 @@ def _costs(res):
 
 def serving_phase():
     """The serving fixtures on the card (phase 18); returns the dense run's
-    batched kernel-1 launches."""
+    batched kernel-1 launches and its result."""
     import torch
 
     from triangulation_in_deformable_scenes_torch.harness import serving
@@ -2092,7 +2221,7 @@ def serving_phase():
           "block-branch solve_pairs differs from each pair's block solve")
     _hold_to_jax("block-branch solve_pairs", ck, ak, JAX_SERVING_BLOCK_COST, JAX_SERVING_BLOCK_N_ACCEPTED,
                  TIED_RTOL)
-    return batched
+    return batched, rb
 
 
 def ba_phase():
@@ -2159,6 +2288,241 @@ def ba_phase():
     check(tuple(got) == tuple(JAX_LOCAL_BA), "local BA's (n_edges, n_removed) differ from JAX's")
 
 
+def _parallel_rank(p):
+    """One rank of phase 20 (run by ``parallel/launch.run_ranks``): each
+    (kind, iterations) task of ``p["tasks"]`` with the kernel and all-reduce
+    counts reset just before and read just after."""
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import scaling
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg
+    from triangulation_in_deformable_scenes_torch.ops import damped_cholesky as dc
+    from triangulation_in_deformable_scenes_torch.parallel import dist, halo
+    from triangulation_in_deformable_scenes_torch.parallel.multihost_worker import _tiny_problem
+
+    mesh = dist.make_mesh("cuda")
+    on_card = lambda tup: type(tup)(*(x.to(mesh.device) for x in tup))
+    data, state, hyper = (on_card(x) for x in p["pair"])
+    out = {}
+    for kind, it in p["tasks"]:
+        _reset_kernel_counts()
+        dist.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "pcg":
+            # One sharded damped solve of the pair's first system (``it``:
+            # "halo" in the plan's Morton layout, or "distributed").
+            plan = halo.plan_halo(state.p1.cpu().numpy(), data.nbr.cpu().numpy(), data.nbr_mask.cpu().numpy(),
+                                  mesh.size)
+            d, s = (halo.permute_data(data, plan), halo.permute_state(state, plan)) if it == "halo" else (data, state)
+            sd, ss = dist.shard_pair(mesh, d, s)
+            sp = dist.ShardedPair(mesh, "KB8", sd, hyper, deformable.ModelSpec())
+            sys_, _ = sp.system(ss)
+            lam = torch.tensor(p["lam"], device=mesh.device)
+            if it == "halo":
+                x_p, x_g = halo.pcg_halo_local(sp, sys_, lam, halo.place_plan(mesh, plan), deformable.CG_ITERS,
+                                               deformable.CG_RTOL)
+            else:
+                x_p, x_g = dist.pcg_sharded(sp, sys_, lam, dist.full_exchange_matvec(sp, sys_, sd.nbr, lam),
+                                            deformable.CG_ITERS, deformable.CG_RTOL)
+            x = block_system._join(dist.gather_rows(mesh, dist.POINTS_AXIS, x_p, "gather_x"), x_g)
+            out[(kind, it)] = dict(x=x.cpu(), iterations=dist.COUNTS["cg_iterations"])
+            continue
+        if kind == "halo":
+            r = halo.solve_pair_halo(mesh, "KB8", data, hyper, state, it, cg_iters=scaling.CG_ITERS)
+        elif kind == "serving":
+            bd, bs, bh = (on_card(x) for x in p["serving"])
+            r = dist.solve_pairs_sharded(dist.make_serving_mesh("cuda"), "KB8", bd, bh, bs, it)
+        else:
+            d, h, s = (data, hyper, state) if kind == "distributed" else _tiny_problem(TINY_SIDE, mesh.device)
+            d, s, _ = halo.pad_pair(d, s, mesh.size)
+            sd, ss = dist.shard_pair(mesh, d, s)
+            r = dist.solve_pair_distributed("KB8", sd, h, ss, it, cg_iters=scaling.CG_ITERS, mesh=mesh)
+        torch.cuda.synchronize()
+        row = dict(wall_s=time.perf_counter() - t0, n_solves=r.n_solves, counts=dict(dist.COUNTS),
+                   k2=block_pcg.LAUNCHES, k2_by_dim=dict(block_pcg.LAUNCHES_BY_DIM), k1=dc.LAUNCHES,
+                   k1_batched=dc.LAUNCHES_BATCHED, k1_batched_by_shape=dict(dc.LAUNCHES_BATCHED_BY_SHAPE))
+        if kind == "serving":
+            row.update(state=type(r.state)(*(x.cpu() for x in r.state)), cost=r.cost.cpu(),
+                       n_accepted=r.n_accepted.cpu())
+        else:
+            row.update(cost=float(r.cost), n_accepted=int(r.n_accepted))
+        out[(kind, it)] = row
+    return out
+
+
+def _hold_sharded(label, ranks, task, want, n_boundary=None, n=None):
+    """Phase 20's checks of one landmark-sharded run over several ranks:
+    every rank's cost bit for bit the same, within the limit of JAX's
+    ``want``, three all-reduces a CG iteration with the fused buffer's size,
+    no kernel launched (the sharded PCG is plain torch and collectives)."""
+    it = task[1]
+    rows = [r[task] for r in ranks]
+    costs = [r["cost"] for r in rows]
+    c = rows[0]["counts"]
+    k, solves = c.get("cg_iterations", 0), c.get("pcg_solves", 0)
+    per_matvec = c.get("pcg_matvec_floats", 0) / max(c.get("pcg_matvec", 0), 1)
+    tol = PARALLEL_TIED_RTOL if it == 1 else FINAL_REL_TOL
+    log(f"[parallel] {label} x {it} iterations on {len(ranks)} ranks: wall_s="
+        f"{max(r['wall_s'] for r in rows):.3f} cost {costs[0]!r} (JAX CPU {want!r}, {abs(costs[0] / want - 1):.3e}, "
+        f"limit {tol}) n_accepted={rows[0]['n_accepted']} damped_solves={rows[0]['n_solves']} cg_iterations={k} "
+        f"all_reduces_per_cg_iteration={(c.get('pcg_matvec', 0) + c.get('pcg_dot', 0) + c.get('pcg_rz_rr', 0) - solves) / max(k, 1):g} "
+        f"floats_per_matvec_exchange={per_matvec:g} bytes_per_matvec_exchange={4 * per_matvec:g} "
+        f"all_reduces={ {t: v for t, v in c.items() if not t.endswith('_floats') and t not in ('cg_iterations', 'pcg_solves')} }")
+    check(all(x == costs[0] for x in costs), f"{label}: ranks' costs differ {costs}")
+    check(abs(costs[0] - want) <= tol * abs(want), f"{label} x {it}: cost outside {tol} of JAX's")
+    check(k > 0 and c["pcg_matvec"] == k and c["pcg_dot"] == k and c["pcg_rz_rr"] == k + solves,
+          f"{label}: not three all-reduces a CG iteration ({c})")
+    size = 6 * n_boundary + 8 if n_boundary is not None else 6 * n + 8
+    check(per_matvec == size, f"{label}: the matvec exchange holds {per_matvec:g} floats, not {size}")
+    check(all(r["k2"] == 0 and r["k1"] + r["k1_batched"] == 0 for r in rows),
+          f"{label}: a kernel launched in the sharded PCG")
+
+
+def parallel_phase(serving_ref=None):
+    """parallel/ on the card (phase 20); returns kernel 2's row at the
+    scaled pair's size, its launches in the world-1 solve. ``serving_ref``
+    is phase 18's unsharded ``solve_pairs`` on the same fixture (run here
+    when not given)."""
+    import concurrent.futures
+
+    import torch
+
+    from triangulation_in_deformable_scenes_torch.harness import scaling, serving
+    from triangulation_in_deformable_scenes_torch.models import block_system, deformable
+    from triangulation_in_deformable_scenes_torch.ops import block_pcg, lm
+    from triangulation_in_deformable_scenes_torch.parallel import halo, launch
+
+    t0 = time.perf_counter()
+    data, state, hyper, fv = scaling.scaling_pair(rotations=JAX_SCALING_FREE_RI)
+    n, K = data.nbr.shape
+    dim = 6 * n + 8
+    log(f"[parallel] the scaled pair: {n} points (dim {dim}, K={K}), {len(fv)} free vertices pinned to JAX's "
+        f"rotations; built in {time.perf_counter() - t0:.2f} s")
+    for S in PARALLEL_WORLDS:
+        plan = halo.plan_halo(state.p1.cpu().numpy(), data.nbr.cpu().numpy(), data.nbr_mask.cpu().numpy(), S)
+        log(f"[parallel] plan over {S} ranks: n_boundary={plan.n_boundary} (JAX {JAX_SCALING_N_BOUNDARY[S]}), "
+            f"off-shard edges per rank {plan.off_w.sum(axis=1).astype(int).tolist()}")
+        check(plan.n_boundary == JAX_SCALING_N_BOUNDARY[S], f"n_boundary over {S} ranks differs from JAX's")
+
+    # Kernel 2 on the world-1 path's first system; the plain PCG on it (and
+    # on its Morton-permuted copy) is what the sharded solves are held to.
+    spec = deformable.ModelSpec()
+    sys0 = block_system.build_block_system("KB8", data, hyper, state, spec)
+    lam = lm.TAU * torch.max(block_system.diag_of(sys0))
+    row = pcg_check(f"scaled pair, {n} points", sys0, data.nbr, -block_system.flat_gradient(sys0), lam)
+    plain = lambda sys_, nbr: block_pcg.pcg_block_system_plain(
+        sys_, nbr, -block_system.flat_gradient(sys_), lam, deformable.CG_ITERS, deformable.CG_RTOL)
+    pcg_refs = {"distributed": plain(sys0, data.nbr)}
+    del sys0
+    for S in PARALLEL_WORLDS:
+        plan = halo.plan_halo(state.p1.cpu().numpy(), data.nbr.cpu().numpy(), data.nbr_mask.cpu().numpy(), S)
+        dp = halo.permute_data(data, plan)
+        pcg_refs[S] = plain(block_system.build_block_system("KB8", dp, hyper, halo.permute_state(state, plan), spec),
+                            dp.nbr)
+
+    fx = serving.serving_batch(serving.POINTS, rotations=JAX_SERVING_DENSE_FREE_RI)
+    ref = serving_ref
+    if ref is None:
+        ref = deformable.solve_pairs("KB8", fx.data, fx.hyper, fx.state, serving.ITERATIONS)
+    cpu = lambda tup: type(tup)(*(x.cpu() for x in tup))
+    payload = dict(pair=(cpu(data), cpu(state), cpu(hyper)), serving=(cpu(fx.data), cpu(fx.state), cpu(fx.hyper)),
+                   lam=float(lam))
+    landmark = [(kind, it) for kind in ("distributed", "halo") for it in PARALLEL_ITERS]
+    serving_task = ("serving", serving.ITERATIONS)
+
+    def ranks(world, tasks, backend=None):
+        t0 = time.perf_counter()
+        out = launch.run_ranks(world, "chip_smoke:_parallel_rank", dict(payload, tasks=tasks), device="cuda",
+                               backend=backend, timeout=PARALLEL_TIMEOUT_S, cwd=REPO)
+        return out, time.perf_counter() - t0
+
+    def worker(mode):
+        t0 = time.perf_counter()
+        outs = launch.spawn(2, ["-m", f"{PKG}.parallel.multihost_worker", mode, "--device", "cuda", "--backend",
+                                "gloo"], timeout=PARALLEL_TIMEOUT_S, cwd=REPO)
+        return [json.loads(o.strip().splitlines()[-1]) for o, _ in outs], time.perf_counter() - t0
+
+    def hold_serving(label, ranks):
+        for rank, r in enumerate(ranks):
+            g = r[serving_task]
+            same = (torch.equal(g["cost"], ref.cost.cpu()) and torch.equal(g["n_accepted"], ref.n_accepted.cpu())
+                    and all(torch.equal(a, b.cpu()) for a, b in zip(g["state"], ref.state)))
+            per = serving.BATCH // len(ranks)
+            log(f"[parallel] {label} rank {rank}: pairs bit-identical to the unsharded solve_pairs: {same}; "
+                f"global_steps={g['n_solves']} batched_kernel1_launches={g['k1_batched']} "
+                f"by_shape={g['k1_batched_by_shape']} single={g['k1']} wall_s={g['wall_s']:.3f}")
+            check(same, f"{label} rank {rank}: the pair-sharded batch differs from the unsharded one")
+            check(g["k1_batched"] == g["n_solves"] and g["k1_batched_by_shape"] == {(per, 6 * serving.POINTS + 8):
+                                                                                  g["n_solves"]} and g["k1"] == 0,
+                  f"{label} rank {rank}: batched kernel-1 launches != global steps")
+
+    # World 1 on NCCL, alone on the card: kernel 2, no collective issued.
+    (w1,), wall = ranks(1, landmark)
+    log(f"[parallel] world 1 on NCCL: {wall:.1f} s of command time")
+    for kind, it in landmark:
+        g = w1[(kind, it)]
+        want = JAX_SCALING_COST[it]
+        tol = PARALLEL_TIED_RTOL if it == 1 else FINAL_REL_TOL
+        log(f"[parallel] world 1 {kind} x {it}: wall_s={g['wall_s']:.3f} cost {g['cost']!r} (JAX CPU {want!r}, "
+            f"{abs(g['cost'] / want - 1):.3e}) n_accepted={g['n_accepted']} damped_solves={g['n_solves']} "
+            f"kernel2_launches={g['k2']} by_dim={g['k2_by_dim']} all_reduces={g['counts']}")
+        check(g["k2"] == g["n_solves"] and g["k2_by_dim"] == {dim: g["n_solves"]},
+              f"world 1 {kind}: kernel-2 launches != damped solves")
+        check(not g["counts"], f"world 1 {kind}: a collective was issued")
+        check(abs(g["cost"] - want) <= tol * want, f"world 1 {kind} x {it}: cost outside {tol} of JAX's")
+    for it in PARALLEL_ITERS:
+        a, b = w1[("halo", it)]["cost"], w1[("distributed", it)]["cost"]
+        log(f"[parallel] world 1 halo vs distributed x {it}: {abs(a / b - 1):.3e} (limit {HALO_ONE_SHARD_RTOL})")
+        check(abs(a - b) <= HALO_ONE_SHARD_RTOL * b, f"one-rank halo x {it} differs from the baseline")
+
+    # Then, all at once on the one card: serving at world 1 (NCCL), worlds
+    # 2 and 4 over gloo (a logic check, not scaling) and the multihost
+    # worker's two modes at 2 ranks over gloo.
+    world2 = [("pcg", "halo"), ("pcg", "distributed")] + [("halo", it) for it in PARALLEL_ITERS] + [
+        (kind, it) for kind in ("tiny", "distributed") for it in PARALLEL_ITERS] + [serving_task]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        jobs = {"serving 1": pool.submit(ranks, 1, [serving_task]),
+                2: pool.submit(ranks, 2, world2, "gloo"),
+                4: pool.submit(ranks, 4, [("pcg", "halo")] + [("halo", it) for it in PARALLEL_ITERS], "gloo"),
+                "baseline": pool.submit(worker, "baseline"), "halo": pool.submit(worker, "halo")}
+        done = {k: f.result() for k, f in jobs.items()}
+    log(f"[parallel] serving at world 1, worlds 2 and 4, and the worker's two modes at once: "
+        f"{time.perf_counter() - t0:.1f} s of command time; each: "
+        + ", ".join(f"{k}: {v[1]:.1f} s" for k, v in done.items()))
+    hold_serving("world 1 serving", done["serving 1"][0])
+    for S in PARALLEL_WORLDS:
+        rs = done[S][0]
+        for kind in ("halo", "distributed") if S == 2 else ("halo",):
+            x_ref, k_ref = pcg_refs[S if kind == "halo" else kind]
+            x_ref = x_ref.cpu()
+            for rank, r in enumerate(rs):
+                g = r[("pcg", kind)]
+                rel = float((g["x"] - x_ref).abs().max() / x_ref.abs().max())
+                log(f"[parallel] world {S} {kind} PCG on the first system, rank {rank}: iterations={g['iterations']} "
+                    f"(plain, one device: {k_ref}) x vs plain {rel:.3e} (limit {PCG_SHARDED_RTOL})")
+                check(g["iterations"] == k_ref and rel <= PCG_SHARDED_RTOL,
+                      f"world {S} {kind} PCG differs from the plain one-device PCG")
+                check(torch.equal(g["x"], rs[0][("pcg", kind)]["x"]), f"world {S} {kind} PCG: ranks' x differ")
+        for it in PARALLEL_ITERS:
+            _hold_sharded(f"world {S} halo", rs, ("halo", it), JAX_SCALING_HALO_COST[(S, it)],
+                          n_boundary=JAX_SCALING_N_BOUNDARY[S])
+        if S == 2:
+            for it in PARALLEL_ITERS:
+                _hold_sharded("world 2 baseline, 5 x 5 problem", rs, ("tiny", it), JAX_TINY_COST[it],
+                              n=TINY_SIDE * TINY_SIDE + 1)
+                _hold_sharded("world 2 baseline", rs, ("distributed", it), JAX_SCALING_COST[it], n=n)
+            hold_serving("world 2 serving over gloo", rs)
+    for mode in ("baseline", "halo"):
+        res = done[mode][0]
+        log(f"[parallel] multihost_worker {mode}, 2 ranks: {[(r['process_id'], r['final_cost']) for r in res]}")
+        check(all(r["descended"] for r in res) and res[0]["final_cost"] == res[1]["final_cost"],
+              f"multihost_worker {mode}: ranks differ or did not descend")
+    return dict(row, launches=w1[("distributed", PARALLEL_ITERS[-1])]["k2"])
+
+
 def setup():
     """Card line and build; returns the card line."""
     import torch
@@ -2215,11 +2579,14 @@ def main():
     rb = batched_kernel_phase()[(16, 776)]
     log(f"[batched_kernel_phase] passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    batched_launches = serving_phase()
+    batched_launches, serving_result = serving_phase()
     log(f"[serving_phase] passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ba_phase()
     log(f"[ba_phase] passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pp = parallel_phase(serving_result)
+    log(f"[parallel_phase] passed in {time.perf_counter() - t0:.1f} s")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     p = pcg_rows[LARGE_POINTS]
@@ -2271,6 +2638,19 @@ def main():
         "bound_ms": rb["bound_ms"],
         "bound_by": rb["bound_by"],
         "library_ms": rb["library_ms"],
+    }, {
+        "name": "block_pcg_16384",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/block_pcg.cu",
+        "replaces": "triangulation_in_deformable_scenes_tpu/ops/pallas_pcg.py:221",
+        "launches": pp["launches"],
+        "max_abs_err": pp["max_abs_err"],
+        "ms": pp["ms"],
+        "plain_ms": pp["plain_ms"],
+        "bound_ms": pp["bound_ms"],
+        "bound_by": pp["bound_by"],
+        "library_ms": pp["library_ms"],
+        "host_us": pp["host_us"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

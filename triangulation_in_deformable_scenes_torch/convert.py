@@ -11,6 +11,8 @@ axis (the stacked batch that ``solve_pairs`` takes) carries over as it is.
 adjustment's ``BAData``/``BAState`` (``models/bundle_adjustment.py:38-53``).
 ``keypoints_from_numpy`` does the same for the front end's ``Keypoints``
 (``ops/features.py:244-251``): octaves int32, descriptors uint8 0/1 bits.
+``halo_plan_from_numpy`` takes the JAX package's ``HaloPlan``
+(``parallel/halo.py:85-103``), host numpy there and here, field by field.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from .models.bundle_adjustment import BAData, BAState
 from .models.deformable import Hyper, PairData, PairState
 from .ops.features import Keypoints
+from .parallel.halo import HaloPlan
 from .precision import FP
 
 _INDEX_FIELDS = {"nbr", "obs_kf", "obs_mp"}
@@ -79,3 +82,11 @@ def keypoints_from_numpy(src, device="cuda") -> Keypoints:
     return Keypoints(**{
         k: torch.as_tensor(np.array(f[k]), device=dev).to(dtypes.get(k, FP)) for k in Keypoints._fields
     })
+
+
+def halo_plan_from_numpy(src) -> HaloPlan:
+    """The JAX package's ``HaloPlan`` (a NamedTuple or a mapping) as the
+    port's: every array as numpy with its dtype, the counts as ints."""
+    f = _fields(src)
+    return HaloPlan(**{k: (int(f[k]) if k in ("n_shards", "n_boundary") else np.asarray(f[k]))
+                       for k in HaloPlan._fields})

@@ -42,7 +42,8 @@ class BlockSystem(NamedTuple):
     g_g: torch.Tensor  # [8]
 
 
-def _arap_slot_jacobian(data: D_.PairData, hyper: D_.Hyper, state: D_.PairState, spec: D_.ModelSpec):
+def _arap_slot_jacobian(data: D_.PairData, hyper: D_.Hyper, state: D_.PairState, spec: D_.ModelSpec,
+                        src: D_.NeighbourSource = None):
     """Analytic slot Jacobian Jfull [N, K, 18] and weighted slot energies
     r [N, K] of the ARAP family (``block_system.py:204-261``): the edge's
     inner residuals are linear in the points,
@@ -53,14 +54,15 @@ def _arap_slot_jacobian(data: D_.PairData, hyper: D_.Hyper, state: D_.PairState,
     with d1 = p1i - p1j, d2 = p2i - p2j, and the xi block takes the se3_exp
     first-order terms at 0 composed left of (Rg0, tg0)."""
     n, K = data.nbr.shape
+    p1s, p2s, Ris, valids = D_._neighbours(data, state, src)
     j_safe = torch.clamp(data.nbr, min=0)
     w_edge = (
-        (data.nbr_mask & data.valid[:, None] & data.valid[j_safe]).to(state.p1.dtype)
+        (data.nbr_mask & data.valid[:, None] & valids[j_safe]).to(state.p1.dtype)
         * torch.sqrt(hyper.arap_w)
         * data.ntri
     )
-    p1j, p2j = state.p1[j_safe], state.p2[j_safe]
-    Rj = data.Ri[j_safe]
+    p1j, p2j = p1s[j_safe], p2s[j_safe]
+    Rj = Ris[j_safe]
     p1i_b = state.p1[:, None, :].expand(n, K, 3)
     p2i_b = state.p2[:, None, :].expand(n, K, 3)
     Ri_b = data.Ri[:, None].expand(n, K, 3, 3)
@@ -107,10 +109,12 @@ def build_block_system(
     hyper: D_.Hyper,
     state: D_.PairState,
     spec: D_.ModelSpec = D_.ModelSpec(),
+    src: D_.NeighbourSource = None,
 ) -> BlockSystem:
     """(H, g) at ``state`` in block-sparse form (``block_system.py:72-299``):
     the same linearization as ``deformable.build_system`` (robust weights
-    frozen at ``state``)."""
+    frozen at ``state``). With ``src`` (``deformable.NeighbourSource``) the
+    rows are a landmark shard's and their neighbours are read from it."""
     n, K = data.nbr.shape
     dtype, dev = state.p1.dtype, state.p1.device
     vm = data.valid.to(dtype)
@@ -183,9 +187,9 @@ def build_block_system(
     # and Ogden families take the forward-mode slot Jacobian of
     # ``deformable._mesh_slot_jacobian`` (``block_system.py:262-268``).
     if spec.energy == "ARAP":
-        Jfull, r_slot = _arap_slot_jacobian(data, hyper, state, spec)
+        Jfull, r_slot = _arap_slot_jacobian(data, hyper, state, spec, src)
     else:
-        L, r = D_._mesh_slot_jacobian(data, hyper, state, spec)
+        L, r = D_._mesh_slot_jacobian(data, hyper, state, spec, src)
         Jfull, r_slot = L.reshape(n, K, 18), r.reshape(n, K)
     Ji, Jj, Jx = Jfull[..., 0:6], Jfull[..., 6:12], Jfull[..., 12:18]
     D = D + 2.0 * torch.einsum("nka,nkb->nab", Ji, Ji)

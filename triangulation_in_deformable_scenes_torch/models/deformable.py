@@ -9,9 +9,10 @@ per-vertex rotations are frozen during the LM iterations.
 Ported here: ``ModelSpec``/``MODELS``/``model_depth_sigma`` (:51-126), the
 state and data tuples (:129-207), ``apply_delta_spec`` (:233-244), every
 residual (:247-447), ``_edge_blocks`` and ``build_system`` (:468-714),
-``build_system_jacfwd`` (:632-660), the backend dispatch and ``solve_pair``
-(:744-823), the serving drivers ``solve_pairs`` and ``solve_pairs_pipelined``
-(:826-961) and ``make_pair_data`` (:964-1042). Per-edge local Jacobians come
+``build_system_jacfwd`` (:632-660), ``assemble_diag`` (:717-737), the
+backend dispatch and ``solve_pair`` (:744-823), the serving drivers
+``solve_pairs`` and ``solve_pairs_pipelined`` (:826-961) and
+``make_pair_data`` (:964-1042). Per-edge local Jacobians come
 from forward-mode AD (``torch.func.jvp`` along each of the 18 coordinates an
 edge touches), the counterpart of ``jax.jacfwd`` under ``jax.vmap`` there.
 Above ``DENSE_DIM_LIMIT`` ``solve_pair`` runs the block-sparse backend of
@@ -104,6 +105,25 @@ class PairState(NamedTuple):
     s2: torch.Tensor
     Rg: torch.Tensor  # [3, 3]
     tg: torch.Tensor  # [3]
+
+
+class NeighbourSource(NamedTuple):
+    """Where the mesh-edge terms read a neighbour j: the whole pair's p1,
+    p2 [N, 3], Ri [N, 3, 3] and valid [N], indexed by ``data.nbr``. Without
+    one (the default) they read ``state`` and ``data`` themselves; a rank
+    that holds only its own rows of a landmark-sharded pair
+    (``parallel/dist.py``) passes the whole arrays it exchanged."""
+
+    p1: torch.Tensor
+    p2: torch.Tensor
+    Ri: torch.Tensor
+    valid: torch.Tensor
+
+
+def _neighbours(data, state, src):
+    if src is None:
+        return state.p1, state.p2, data.Ri, data.valid
+    return src
 
 
 class Hyper(NamedTuple):
@@ -217,19 +237,21 @@ def _mesh_edge_energy(spec: ModelSpec, p1i, p2i, p1j, p2j, Ri, Rj, w, area, Rg, 
     return e
 
 
-def _arap_energies(data: PairData, state: PairState, spec: ModelSpec = ModelSpec(), hyper: Hyper = None):
+def _arap_energies(data: PairData, state: PairState, spec: ModelSpec = ModelSpec(), hyper: Hyper = None,
+                   src: NeighbourSource = None):
     """Mesh-edge energies per directed edge, [N, K] (masked); ``deformable.py:308-338``."""
     alpha = hyper.alpha if hyper is not None else 1.0
     beta = hyper.beta if hyper is not None else 1.0
     if spec == ModelSpec() or (spec.energy == "ARAP" and spec.use_global and not spec.one_set):
         return arap_ops.arap_edge_energy(
             state.p1, state.p2, data.Ri, data.nbr, data.nbr_mask, data.wcot,
-            data.area, state.Rg, state.tg,
+            data.area, state.Rg, state.tg, src=None if src is None else src[:3],
         )
+    p1s, p2s, Ris, _ = _neighbours(data, state, src)
     j_safe = torch.clamp(data.nbr, min=0)
     E = _mesh_edge_energy(
-        spec, state.p1[:, None, :], state.p2[:, None, :], state.p1[j_safe], state.p2[j_safe],
-        data.Ri[:, None], data.Ri[j_safe], data.wcot, data.area, state.Rg, state.tg, alpha, beta,
+        spec, state.p1[:, None, :], state.p2[:, None, :], p1s[j_safe], p2s[j_safe],
+        data.Ri[:, None], Ris[j_safe], data.wcot, data.area, state.Rg, state.tg, alpha, beta,
     )
     return torch.where(data.nbr_mask, E, torch.zeros_like(E))
 
@@ -244,8 +266,10 @@ def _huber_rho(chi2, delta=HUBER_DELTA):
     return rho, drho
 
 
-def robust_cost(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
-    """Total robustified chi2, the LM accept/reject merit (``deformable.py:350-391``)."""
+def robust_cost(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec(),
+                src: NeighbourSource = None):
+    """Total robustified chi2, the LM accept/reject merit (``deformable.py:350-391``);
+    ``src``: see ``NeighbourSource``."""
     vm = data.valid.to(state.p1.dtype)
     e1 = _rep_errors(cam_kind, data, state.p1, data.R1w, data.t1w, data.kp1)
     e2 = _rep_errors(cam_kind, data, state.p2, data.R2w, data.t2w, data.kp2)
@@ -261,7 +285,7 @@ def robust_cost(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, s
     cost_depth = torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
 
     info_a = hyper.arap_w * data.ntri * data.ntri
-    E = _arap_energies(data, state, spec, hyper)
+    E = _arap_energies(data, state, spec, hyper, src)
     cost = cost_rep + cost_depth + torch.sum(info_a * E * E)
 
     if spec.depth in ("scaled", "scaled_squared"):
@@ -312,20 +336,22 @@ def residual_vector(cam_kind: str, data: PairData, hyper: Hyper, state: PairStat
 # ---------------------------------------------------------------------------
 
 
-def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
+def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec(),
+                        src: NeighbourSource = None):
     """Weighted energy r [N*K] of every directed mesh-edge slot and its
     Jacobian L [N*K, 18] over (p1_i, p2_i, p1_j, p2_j, xi), by forward-mode
     AD of the batched edge energy; masked slots carry exact zeros."""
     n, K = data.nbr.shape
     dtype, dev = state.p1.dtype, state.p1.device
+    p1s, p2s, Ris, valids = _neighbours(data, state, src)
     j_safe = torch.clamp(data.nbr, min=0)
     sqrt_info_a = torch.sqrt(hyper.arap_w) * data.ntri
-    w_edge = (data.nbr_mask & data.valid[:, None] & data.valid[j_safe]).to(dtype) * sqrt_info_a
+    w_edge = (data.nbr_mask & data.valid[:, None] & valids[j_safe]).to(dtype) * sqrt_info_a
 
     Rg0, tg0 = state.Rg, state.tg
     ii = torch.arange(n, device=dev)[:, None].expand(n, K).reshape(-1)
     jj = j_safe.reshape(-1)
-    Ri_e, Rj_e = data.Ri[ii], data.Ri[jj]
+    Ri_e, Rj_e = data.Ri[ii], Ris[jj]
     wcot_e, we = data.wcot.reshape(-1), w_edge.reshape(-1)
 
     def local(x):  # x [NK, 18] -> [NK] weighted edge energies
@@ -338,7 +364,7 @@ def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: Mo
         return we * energy
 
     x_edges = torch.cat(
-        [state.p1[ii], state.p2[ii], state.p1[jj], state.p2[jj], torch.zeros((n * K, 6), dtype=dtype, device=dev)],
+        [state.p1[ii], state.p2[ii], p1s[jj], p2s[jj], torch.zeros((n * K, 6), dtype=dtype, device=dev)],
         dim=-1,
     )
     # One forward-mode JVP per local coordinate, vmapped over the 18
@@ -485,6 +511,23 @@ def build_system(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, 
     return J.T @ J, J.T @ r
 
 
+def assemble_diag(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
+    """diag(J^T J) from the per-edge blocks, no H built (``deformable.py:717-737``).
+
+    JAX scatter-adds every edge's squared column norms with ``.at[].add``.
+    Here the contributions are stably sorted by index and each index's run
+    summed by ``torch.segment_reduce``, so duplicates add in one fixed order
+    on either device (a scatter-add on the card sums in a varying order) and
+    two calls give the same bits."""
+    dim = _tangent_dim(state.p1.shape[0])
+    blocks = _edge_blocks(cam_kind, data, hyper, state, spec)
+    idx = torch.cat([i.reshape(-1) for _, _, i in blocks])
+    contrib = torch.cat([torch.einsum("mri,mri->mi", L, L).reshape(-1) for L, _, _ in blocks])
+    order = torch.argsort(idx, stable=True)
+    lengths = torch.bincount(idx, minlength=dim)
+    return torch.segment_reduce(contrib[order], "sum", lengths=lengths, unsafe=True, initial=0.0)
+
+
 # ---------------------------------------------------------------------------
 # Solve entry point
 # ---------------------------------------------------------------------------
@@ -570,6 +613,7 @@ def solve_pairs(
     state0: PairState,
     n_iterations: int,
     spec: ModelSpec = ModelSpec(),
+    backend_batch: int | None = None,
 ) -> lm_ops.LMResult:
     """Batched multi-pair refinement (``deformable.py:826-917``): every field
     of ``data`` and ``state0`` carries a leading pair axis, ``hyper`` is
@@ -578,7 +622,10 @@ def solve_pairs(
     The batch runs under ``lm_optimize_flat_batched``: one global step
     linearizes every pair, makes one batched solve and one batched cost,
     and each pair keeps its own sequential (lambda, nu, accept) schedule.
-    The backend follows ``use_dense_backend(n, K, batch)``, as in JAX:
+    The backend follows ``use_dense_backend(n, K, batch)``, as in JAX, with
+    ``batch`` the whole batch's size: ``backend_batch`` where the pairs are a
+    rank's slice of a pair-sharded batch (``parallel/dist.solve_pairs_sharded``),
+    else this batch's:
 
     - dense: each pair's (H, g) from ``build_system``, ``diag_max`` per
       pair, and ONE launch of kernel 1's batched entry for the batch
@@ -605,7 +652,7 @@ def solve_pairs(
         return torch.stack([robust_cost(cam_kind, d, h, s, spec)
                             for d, h, s in zip(datas, hypers, lm_ops.unstack(state_b))])
 
-    if use_dense_backend(n, K, batch):
+    if use_dense_backend(n, K, batch if backend_batch is None else backend_batch):
 
         def make_step_b(state_b):
             Hg = [build_system(cam_kind, d, h, s, spec) for d, h, s in zip(datas, hypers, lm_ops.unstack(state_b))]

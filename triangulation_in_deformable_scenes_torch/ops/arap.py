@@ -34,12 +34,15 @@ def compute_rotations(p1, p2, nbr, nbr_mask, weights):
     return torch.where(has_nbr[:, None, None], R, eye)
 
 
-def arap_edge_energy(p1, p2, R, nbr, nbr_mask, weights, area, Rg, tg):
+def arap_edge_energy(p1, p2, R, nbr, nbr_mask, weights, area, Rg, tg, src=None):
     """Energy of every directed mesh edge; [N, K] with zeros on padding
-    (``arap.py:58-87``)."""
-    p1j = _gather_nbr(p1, nbr)
-    p2j = _gather_nbr(p2, nbr)
-    Rj = R[torch.clamp(nbr, min=0)]
+    (``arap.py:58-87``). ``src`` = (p1, p2, R) that ``nbr`` indexes, when it
+    is not the rows themselves (a landmark shard's rows read the whole
+    pair's arrays)."""
+    p1s, p2s, Rs = (p1, p2, R) if src is None else src
+    p1j = _gather_nbr(p1s, nbr)
+    p2j = _gather_nbr(p2s, nbr)
+    Rj = Rs[torch.clamp(nbr, min=0)]
 
     d1i = p1[:, None, :] - p1j
     d2i = p2[:, None, :] - p2j

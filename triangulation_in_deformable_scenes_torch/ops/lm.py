@@ -83,11 +83,17 @@ def lm_optimize_general(
     apply_delta: Callable,
     state0,
     n_iterations: int,
+    tau: float = TAU,
+    max_trials: int = MAX_TRIALS,
+    dot: Callable = torch.dot,
 ) -> LMResult:
     """The LM damping loop (``lm.py:71-150``).
 
     ``make_step(state) -> (solve, g, diag_max)`` linearizes at ``state``;
-    ``solve(lam) -> delta`` is the damped solve.
+    ``solve(lam) -> delta`` is the damped solve. ``dot`` is the gain
+    ratio's inner product of two tangents: a landmark-sharded solve passes
+    one that sums over every rank (``parallel/dist.py``), so that every rank
+    reads the same accept decision.
     """
     F0_init = robust_cost(state0)
     state, F = state0, F0_init
@@ -97,14 +103,14 @@ def lm_optimize_general(
     n_solves = 0
     for _ in range(n_iterations):
         solve, g, diag_max = make_step(state)
-        lam = torch.where(lam < 0, TAU * diag_max, lam)
+        lam = torch.where(lam < 0, tau * diag_max, lam)
         accepted = False
-        for _ in range(MAX_TRIALS):
+        for _ in range(max_trials):
             delta = solve(lam)
             n_solves += 1
             cand = apply_delta(state, delta)
             F1 = robust_cost(cand)
-            scale = torch.dot(delta, lam * delta - g) + TINY
+            scale = dot(delta, lam * delta - g) + TINY
             rho = (F - F1) / scale
             ok_t = (rho > 0) & torch.isfinite(F1)
             factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
