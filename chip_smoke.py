@@ -187,9 +187,11 @@ Phases, each of which must pass (nothing is caught):
    equal JAX's; kernel 2 held to its plain version on the pair's first
    system (``pcg_check``). World 1 on NCCL, alone on the card:
    ``solve_pair_distributed`` and ``solve_pair_halo`` after 1 and 5
-   iterations, kernel-2 launches equal to the damped solves, no collective,
-   costs within PARALLEL_TIED_RTOL / FINAL_REL_TOL of JAX's and the halo
-   solve within HALO_ONE_SHARD_RTOL of the baseline. Then at once: serving
+   iterations, kernel-2 launches equal to the damped solves, no collective
+   in the solves, costs within PARALLEL_TIED_RTOL / FINAL_REL_TOL of JAX's
+   and the halo solve within HALO_ONE_SHARD_RTOL of the baseline; then one
+   NCCL all_reduce of the last cost, which must come back unchanged (also
+   after serving at world 1). Then at once: serving
    (phase 18's fixture and budget) sharded by pair at world 1 on NCCL;
    world 2 over gloo on the one card (asked for by name: NCCL takes one
    card a rank): the halo solve, the baseline on the multihost worker's
@@ -2293,6 +2295,7 @@ def _parallel_rank(p):
     (kind, iterations) task of ``p["tasks"]`` with the kernel and all-reduce
     counts reset just before and read just after."""
     import torch
+    import torch.distributed as tdist
 
     from triangulation_in_deformable_scenes_torch.harness import scaling
     from triangulation_in_deformable_scenes_torch.models import block_system, deformable
@@ -2349,6 +2352,14 @@ def _parallel_rank(p):
         else:
             row.update(cost=float(r.cost), n_accepted=int(r.n_accepted))
         out[(kind, it)] = row
+    if tdist.is_initialized() and tdist.get_backend() == "nccl":
+        # A world of one issues no collective in the solves; this one NCCL
+        # all-reduce, of the last task's cost on the card, must give it back.
+        before = torch.as_tensor(out[p["tasks"][-1]]["cost"], dtype=torch.float32).reshape(-1).to(mesh.device)
+        after = before.clone()
+        tdist.all_reduce(after)
+        torch.cuda.synchronize()
+        out["nccl"] = dict(world=tdist.get_world_size(), floats=after.numel(), same=torch.equal(before, after))
     return out
 
 
@@ -2458,7 +2469,13 @@ def parallel_phase(serving_ref=None):
                                                                                   g["n_solves"]} and g["k1"] == 0,
                   f"{label} rank {rank}: batched kernel-1 launches != global steps")
 
-    # World 1 on NCCL, alone on the card: kernel 2, no collective issued.
+    def hold_nccl(label, rank):
+        g = rank.get("nccl")
+        log(f"[parallel] {label}: one NCCL all_reduce of the last cost on the card: {g}")
+        check(g is not None and g["world"] == 1 and g["same"], f"{label}: the NCCL all_reduce changed the cost")
+
+    # World 1 on NCCL, alone on the card: kernel 2, no collective issued in
+    # the solves.
     (w1,), wall = ranks(1, landmark)
     log(f"[parallel] world 1 on NCCL: {wall:.1f} s of command time")
     for kind, it in landmark:
@@ -2472,6 +2489,7 @@ def parallel_phase(serving_ref=None):
               f"world 1 {kind}: kernel-2 launches != damped solves")
         check(not g["counts"], f"world 1 {kind}: a collective was issued")
         check(abs(g["cost"] - want) <= tol * want, f"world 1 {kind} x {it}: cost outside {tol} of JAX's")
+    hold_nccl("world 1", w1)
     for it in PARALLEL_ITERS:
         a, b = w1[("halo", it)]["cost"], w1[("distributed", it)]["cost"]
         log(f"[parallel] world 1 halo vs distributed x {it}: {abs(a / b - 1):.3e} (limit {HALO_ONE_SHARD_RTOL})")
@@ -2493,6 +2511,7 @@ def parallel_phase(serving_ref=None):
         f"{time.perf_counter() - t0:.1f} s of command time; each: "
         + ", ".join(f"{k}: {v[1]:.1f} s" for k, v in done.items()))
     hold_serving("world 1 serving", done["serving 1"][0])
+    hold_nccl("world 1 serving", done["serving 1"][0][0])
     for S in PARALLEL_WORLDS:
         rs = done[S][0]
         for kind in ("halo", "distributed") if S == 2 else ("halo",):

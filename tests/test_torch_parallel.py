@@ -199,6 +199,16 @@ def _rank_job(p):
         for it in p["iters"]:
             r = t_dist.solve_pairs_sharded(smesh, "KB8", bd, bh, bs, it)
             out[("serving", it)] = dict(cost=r.cost, p1=r.state.p1, n_accepted=r.n_accepted)
+    if p.get("block_budget") is not None:
+        # Last, since it patches the package: a dense budget that the whole
+        # batch exceeds and one rank's slice alone would not.
+        from triangulation_in_deformable_scenes_torch.ops import block_pcg
+
+        t_def.DENSE_J_BUDGET_BYTES = p["block_budget"]
+        pcg, calls = block_pcg.pcg_block_system, []
+        block_pcg.pcg_block_system = lambda *a: (calls.append(1), pcg(*a))[1]
+        r = t_dist.solve_pairs_sharded(smesh, "KB8", bd, bh, bs, ITERS[-1])
+        out["serving_block"] = dict(cost=r.cost, p1=r.state.p1, n_accepted=r.n_accepted, pcg_calls=len(calls))
     return out
 
 
@@ -222,10 +232,19 @@ def _jax_lam():
     return float(1e-5 * J.jnp.max(J.bs.diag_of(sys_)))
 
 
+def _serving_block_budget():
+    """A dense budget of exactly half the serving batch's Jacobian: the
+    whole batch takes the block backend, one of two ranks' halves the dense."""
+    td, ts, _ = _port(*_serving_problem())
+    n, K = ts.p1.shape[1], td.nbr.shape[-1]
+    return (SERVING_PAIRS // 2) * (n * (6 + K) + 2) * t_def._tangent_dim(n) * 4
+
+
 @functools.lru_cache(maxsize=None)
 def _port_runs(world):
     payload = dict(pair=_port(*_jax_pair(N_SOLVE)), lam=_jax_lam(), cap=t_def.CG_ITERS, iters=ITERS,
-                   baseline=world == 2, serving=_port(*_serving_problem()) if world == 2 else None)
+                   baseline=world == 2, serving=_port(*_serving_problem()) if world == 2 else None,
+                   block_budget=_serving_block_budget() if world == 2 else None)
     return launch.run_ranks(world, "tests.test_torch_parallel:_rank_job", payload, device="cpu",
                             timeout=RANK_TIMEOUT_S, cwd=REPO)
 
@@ -384,6 +403,23 @@ def test_pair_sharded_serving_matches(it):
     else:
         np.testing.assert_allclose(got["p1"].numpy(), np.asarray(jr.state.p1), rtol=5e-2, atol=1e-5)
         np.testing.assert_allclose(got["cost"].numpy(), np.asarray(jr.cost), rtol=0.2)
+
+
+def test_pair_sharded_serving_keeps_the_whole_batch_backend(monkeypatch):
+    """With the dense budget between one rank's half of the batch and the
+    whole batch, each rank's slice runs the whole batch's block backend (as
+    JAX dispatches on the global shape) and matches the unsharded batch."""
+    td, ts, th = _port(*_serving_problem())
+    n, K = ts.p1.shape[1], td.nbr.shape[-1]
+    monkeypatch.setattr(t_def, "DENSE_J_BUDGET_BYTES", _serving_block_budget())
+    assert not t_def.use_dense_backend(n, K, SERVING_PAIRS) and t_def.use_dense_backend(n, K, SERVING_PAIRS // 2)
+    alone = t_def.solve_pairs("KB8", td, th, ts, ITERS[-1])
+    for r in _port_runs(2):
+        got = r["serving_block"]
+        assert got["pcg_calls"] > 0
+        np.testing.assert_allclose(got["p1"].numpy(), alone.state.p1.numpy(), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(got["cost"].numpy(), alone.cost.numpy(), rtol=1e-6)
+        assert torch.equal(got["n_accepted"], alone.n_accepted)
 
 
 def _cuda():

@@ -83,7 +83,6 @@ def lm_optimize_general(
     apply_delta: Callable,
     state0,
     n_iterations: int,
-    tau: float = TAU,
     max_trials: int = MAX_TRIALS,
     dot: Callable = torch.dot,
 ) -> LMResult:
@@ -103,7 +102,7 @@ def lm_optimize_general(
     n_solves = 0
     for _ in range(n_iterations):
         solve, g, diag_max = make_step(state)
-        lam = torch.where(lam < 0, tau * diag_max, lam)
+        lam = torch.where(lam < 0, TAU * diag_max, lam)
         accepted = False
         for _ in range(max_trials):
             delta = solve(lam)

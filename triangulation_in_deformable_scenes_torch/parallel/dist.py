@@ -343,13 +343,30 @@ class ShardedPair:
 
         return make_step
 
-    def optimize(self, solve_factory, state0, n_iterations, tau, max_trials) -> lm_ops.LMResult:
-        """The shared LM loop on this rank's rows (``step``), with the cost
-        and the gain ratio's dot product summed over the ranks."""
-        return lm_ops.lm_optimize_general(
-            self.step(solve_factory), self.cost, D_.apply_delta, state0, n_iterations,
-            tau=tau, max_trials=max_trials, dot=self.dot,
-        )
+
+
+def sharded_pair(mesh: Mesh | None, cam_kind: str, data: D_.PairData, hyper: D_.Hyper,
+                 spec: D_.ModelSpec) -> ShardedPair | None:
+    """This rank's ``ShardedPair``; None without ``mesh`` or on a points
+    axis of one rank, where (data) is the whole pair."""
+    if mesh is None or mesh.axis_size(POINTS_AXIS) == 1:
+        return None
+    return ShardedPair(mesh, cam_kind, data, hyper, spec)
+
+
+def optimize_rows(pair: ShardedPair | None, cam_kind: str, data: D_.PairData, hyper: D_.Hyper,
+                  spec: D_.ModelSpec, make_step, state0: D_.PairState, n_iterations: int,
+                  max_trials: int) -> lm_ops.LMResult:
+    """The shared LM damping loop (``ops/lm.lm_optimize_general``) with
+    ``make_step`` over this rank's rows: with a ``ShardedPair`` the cost and
+    the gain ratio's dot product are summed over the ranks; without one
+    they are the whole pair's."""
+    if pair is None:
+        cost, dot = (lambda s: D_.robust_cost(cam_kind, data, hyper, s, spec)), torch.dot
+    else:
+        cost, dot = pair.cost, pair.dot
+    return lm_ops.lm_optimize_general(make_step, cost, D_.apply_delta, state0, n_iterations,
+                                      max_trials=max_trials, dot=dot)
 
 
 def pcg_sharded(sp: ShardedPair, sys: bs_.BlockSystem, lam, matvec, cg_iters: int, rtol: float):
@@ -427,7 +444,6 @@ def solve_pair_distributed(
     n_iterations: int,
     cg_iters: int = 50,
     max_trials: int = 6,
-    tau: float = 1e-5,
     spec: D_.ModelSpec = D_.ModelSpec(),
     mesh: Mesh | None = None,
 ) -> DistLMResult:
@@ -441,20 +457,10 @@ def solve_pair_distributed(
     exchanges the whole packed tangent (``full_exchange_matvec``); the
     returned state is this rank's rows (``gather_state`` gives the whole).
     """
-    if mesh is None or mesh.axis_size(POINTS_AXIS) == 1:
+    pair = sharded_pair(mesh, cam_kind, data, hyper, spec)
+    if pair is None:
         make_step = bs_.make_block_step(cam_kind, data, hyper, spec, cg_iters, D_.CG_RTOL)
-        return lm_ops.lm_optimize_general(
-            make_step,
-            robust_cost=lambda s: D_.robust_cost(cam_kind, data, hyper, s, spec),
-            apply_delta=D_.apply_delta,
-            state0=state0,
-            n_iterations=n_iterations,
-            tau=tau,
-            max_trials=max_trials,
-        )
-    sp = ShardedPair(mesh, cam_kind, data, hyper, spec)
-
-    def solve(sys, lam):
-        return pcg_sharded(sp, sys, lam, full_exchange_matvec(sp, sys, data.nbr, lam), cg_iters, D_.CG_RTOL)
-
-    return sp.optimize(solve, state0, n_iterations, tau, max_trials)
+    else:
+        make_step = pair.step(lambda sys, lam: pcg_sharded(
+            pair, sys, lam, full_exchange_matvec(pair, sys, data.nbr, lam), cg_iters, D_.CG_RTOL))
+    return optimize_rows(pair, cam_kind, data, hyper, spec, make_step, state0, n_iterations, max_trials)

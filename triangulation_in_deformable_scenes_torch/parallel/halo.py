@@ -243,39 +243,29 @@ def pcg_halo_local(sp: dist.ShardedPair, sys: bs_.BlockSystem, lam, plan_arrays,
     return dist.pcg_sharded(sp, sys, lam, matvec, cg_iters, rtol)
 
 
-def make_halo_step(mesh: dist.Mesh, cam_kind, data, hyper, spec, plan_arrays, cg_iters: int, cg_rtol: float):
+def make_halo_step(mesh: dist.Mesh, cam_kind, data, hyper, spec, plan_arrays, cg_iters: int, cg_rtol: float,
+                   pair: dist.ShardedPair | None = None):
     """LM step factory (``ops.lm.lm_optimize_general`` contract) whose damped
     solves run the halo PCG over this rank's rows (``halo.py:350-389``); on
-    a points axis of one rank, ``make_block_step`` (kernel 2 on the card)."""
-    if mesh.axis_size(dist.POINTS_AXIS) == 1:
+    a points axis of one rank, ``make_block_step`` (kernel 2 on the card).
+    ``pair`` is this rank's ``dist.sharded_pair``, made here if not given."""
+    if pair is None:
+        pair = dist.sharded_pair(mesh, cam_kind, data, hyper, spec)
+    if pair is None:
         return bs_.make_block_step(cam_kind, data, hyper, spec, cg_iters, cg_rtol)
-    sp = dist.ShardedPair(mesh, cam_kind, data, hyper, spec)
-    return sp.step(_halo_solve(sp, plan_arrays, cg_iters, cg_rtol))
-
-
-def _halo_solve(sp, plan_arrays, cg_iters, cg_rtol):
-    return lambda sys, lam: pcg_halo_local(sp, sys, lam, plan_arrays, cg_iters, cg_rtol)
+    return pair.step(lambda sys, lam: pcg_halo_local(pair, sys, lam, plan_arrays, cg_iters, cg_rtol))
 
 
 def build_halo_solver(mesh: dist.Mesh, cam_kind: str, n_iterations: int, cg_iters: int = 50, max_trials: int = 6,
-                      tau: float = 1e-5, spec: D_.ModelSpec = D_.ModelSpec()):
+                      spec: D_.ModelSpec = D_.ModelSpec()):
     """Solver factory (``halo.py:392-415``): the returned callable takes
     (data, hyper, state0, plan_arrays), this rank's rows in the PERMUTED
-    layout, and runs the shared LM damping loop with the halo PCG."""
+    layout, and runs the shared LM damping loop with ``make_halo_step``."""
 
     def run(data, hyper, state0, plan_arrays):
-        if mesh.axis_size(dist.POINTS_AXIS) == 1:
-            return lm_ops.lm_optimize_general(
-                bs_.make_block_step(cam_kind, data, hyper, spec, cg_iters, D_.CG_RTOL),
-                robust_cost=lambda s: D_.robust_cost(cam_kind, data, hyper, s, spec),
-                apply_delta=D_.apply_delta,
-                state0=state0,
-                n_iterations=n_iterations,
-                tau=tau,
-                max_trials=max_trials,
-            )
-        sp = dist.ShardedPair(mesh, cam_kind, data, hyper, spec)
-        return sp.optimize(_halo_solve(sp, plan_arrays, cg_iters, D_.CG_RTOL), state0, n_iterations, tau, max_trials)
+        pair = dist.sharded_pair(mesh, cam_kind, data, hyper, spec)
+        make_step = make_halo_step(mesh, cam_kind, data, hyper, spec, plan_arrays, cg_iters, D_.CG_RTOL, pair)
+        return dist.optimize_rows(pair, cam_kind, data, hyper, spec, make_step, state0, n_iterations, max_trials)
 
     return run
 
@@ -325,7 +315,6 @@ def solve_pair_halo(
     n_iterations: int,
     cg_iters: int = 50,
     max_trials: int = 6,
-    tau: float = 1e-5,
     spec: D_.ModelSpec = D_.ModelSpec(),
 ) -> lm_ops.LMResult:
     """One-call wrapper (``halo.py:441-475``): pad, plan, permute, take this
@@ -333,8 +322,7 @@ def solve_pair_halo(
     returns the whole pair's state. Every rank passes the same whole
     (data, state0); the plan is deterministic, so all compute one layout."""
     data_p, state_p, plan, n_orig = _plan_and_shard(mesh, data, state0)
-    run = build_halo_solver(mesh, cam_kind, n_iterations, cg_iters=cg_iters, max_trials=max_trials, tau=tau,
-                            spec=spec)
+    run = build_halo_solver(mesh, cam_kind, n_iterations, cg_iters=cg_iters, max_trials=max_trials, spec=spec)
     result = run(data_p, hyper, state_p, place_plan(mesh, plan))
     state = dist.gather_state(mesh, result.state)
     return result._replace(state=unpad_state(unpermute_state(state, plan), n_orig))
@@ -349,13 +337,11 @@ def solve_pair_halo_global(
     n_iterations: int,
     cg_iters: int = 50,
     max_trials: int = 6,
-    tau: float = 1e-5,
     spec: D_.ModelSpec = D_.ModelSpec(),
 ):
     """Cross-process ``solve_pair_halo`` (``halo.py:499-539``): returns
     (LMResult with this rank's rows of the state in the PERMUTED+PADDED
     layout, plan, n_original); costs are the whole pair's on every rank."""
     data_p, state_p, plan, n_orig = _plan_and_shard(mesh, data, state0)
-    run = build_halo_solver(mesh, cam_kind, n_iterations, cg_iters=cg_iters, max_trials=max_trials, tau=tau,
-                            spec=spec)
+    run = build_halo_solver(mesh, cam_kind, n_iterations, cg_iters=cg_iters, max_trials=max_trials, spec=spec)
     return run(data_p, hyper, state_p, place_plan_global(mesh, plan)), plan, n_orig
