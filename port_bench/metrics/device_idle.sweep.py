@@ -1,0 +1,7 @@
+"""Share of the profiled stretches in which no operation ran on the device (%)."""
+
+
+def read(rec):
+    if rec.get("kind") != "sweep":
+        return None
+    return 100.0 * (1.0 - rec["summary"]["busy_s"] / rec["summary"]["length_s"])
