@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..ops import block_pcg
 from ..ops import camera as cam_ops
 from ..ops import lie
@@ -115,109 +116,110 @@ def build_block_system(
     the same linearization as ``deformable.build_system`` (robust weights
     frozen at ``state``). With ``src`` (``deformable.NeighbourSource``) the
     rows are a landmark shard's and their neighbours are read from it."""
-    n, K = data.nbr.shape
-    dtype, dev = state.p1.dtype, state.p1.device
-    vm = data.valid.to(dtype)
+    with tracing.span("assembly"):
+        n, K = data.nbr.shape
+        dtype, dev = state.p1.dtype, state.p1.device
+        vm = data.valid.to(dtype)
 
-    D = torch.zeros((n, 6, 6), dtype=dtype, device=dev)
-    C = torch.zeros((n, 6, 8), dtype=dtype, device=dev)
-    Hg = torch.zeros((8, 8), dtype=dtype, device=dev)
-    g_p = torch.zeros((n, 6), dtype=dtype, device=dev)
-    g_g = torch.zeros((8,), dtype=dtype, device=dev)
+        D = torch.zeros((n, 6, 6), dtype=dtype, device=dev)
+        C = torch.zeros((n, 6, 8), dtype=dtype, device=dev)
+        Hg = torch.zeros((8, 8), dtype=dtype, device=dev)
+        g_p = torch.zeros((n, 6), dtype=dtype, device=dev)
+        g_g = torch.zeros((8,), dtype=dtype, device=dev)
 
-    # Reprojection edges, Huber IRLS weights frozen at state; closed-form
-    # Jacobian de/dp = -(dproj/dpc) R.
-    for slot, (p, R, t, kp, inv_s2) in enumerate((
-        (state.p1, data.R1w, data.t1w, data.kp1, data.inv_sigma2_1),
-        (state.p2, data.R2w, data.t2w, data.kp2, data.inv_sigma2_2),
-    )):
-        pc = lie.apply(R, t, p)
-        e = kp - cam_ops.project(cam_kind, data.cam_params, pc)
-        chi2 = torch.sum(e * e, dim=-1) * inv_s2 * hyper.rep_w
-        _, drho = D_._huber_rho(chi2)
-        w = torch.sqrt(drho * inv_s2 * hyper.rep_w) * vm
-        Jpi = cam_ops.project_jac(cam_kind, data.cam_params, pc)  # [N, 2, 3]
-        A = -w[:, None, None] * torch.einsum("nab,bc->nac", Jpi, R)  # [N, 2, 3]
-        r = w[:, None] * e
-        s = 3 * slot
-        D[:, s : s + 3, s : s + 3] += torch.einsum("nra,nrb->nab", A, A)
-        g_p[:, s : s + 3] += torch.einsum("nra,nr->na", A, r)
-
-    # Depth edges, closed form: every mode's e depends on p only through
-    # z = (R p + t)[2], so de/dp = (de/dz) R[2, :] and de/ds is scalar.
-    if spec.depth != "none":
-        inv_sigma_d = 1.0 / hyper.depth_sigma
-        for slot, (p, sc, R, t, d) in enumerate((
-            (state.p1, state.s1, data.R1w, data.t1w, data.depth1),
-            (state.p2, state.s2, data.R2w, data.t2w, data.depth2),
+        # Reprojection edges, Huber IRLS weights frozen at state; closed-form
+        # Jacobian de/dp = -(dproj/dpc) R.
+        for slot, (p, R, t, kp, inv_s2) in enumerate((
+            (state.p1, data.R1w, data.t1w, data.kp1, data.inv_sigma2_1),
+            (state.p2, data.R2w, data.t2w, data.kp2, data.inv_sigma2_2),
         )):
-            w = vm * inv_sigma_d
-            z = (p @ R.T + t)[:, 2]
-            if spec.depth == "fixed":
-                e = d - z * sc
-                de_dz = torch.ones_like(e) * (-sc)
-                de_ds = torch.zeros_like(e)
-            elif spec.depth == "fixed_squared":
-                u = d - z * sc
-                e = u * u
-                de_dz = -2.0 * u * sc
-                de_ds = torch.zeros_like(e)
-            elif spec.depth == "scaled_squared":
-                u = d / sc - z
-                pen = torch.where(sc <= 0.0, 500.0, 1.0).to(dtype)
-                e = pen * u * u
-                de_dz = pen * (-2.0 * u)
-                de_ds = pen * (-2.0 * u * d / (sc * sc))
-            else:  # "scaled": linear residual
-                pen = torch.where(sc <= 0.0, 500.0**0.5, 1.0).to(dtype)
-                e = pen * (d / sc - z)
-                de_dz = torch.ones_like(e) * (-pen)
-                de_ds = pen * (-d / (sc * sc))
-            r = w * e
-            ap = (w * de_dz)[:, None] * R[2, :][None, :]  # [N, 3]
-            a_s = w * de_ds
+            pc = lie.apply(R, t, p)
+            e = kp - cam_ops.project(cam_kind, data.cam_params, pc)
+            chi2 = torch.sum(e * e, dim=-1) * inv_s2 * hyper.rep_w
+            _, drho = D_._huber_rho(chi2)
+            w = torch.sqrt(drho * inv_s2 * hyper.rep_w) * vm
+            Jpi = cam_ops.project_jac(cam_kind, data.cam_params, pc)  # [N, 2, 3]
+            A = -w[:, None, None] * torch.einsum("nab,bc->nac", Jpi, R)  # [N, 2, 3]
+            r = w[:, None] * e
             s = 3 * slot
-            D[:, s : s + 3, s : s + 3] += torch.einsum("na,nb->nab", ap, ap)
-            C[:, s : s + 3, slot] += ap * a_s[:, None]
-            Hg[slot, slot] += torch.sum(a_s * a_s)
-            g_p[:, s : s + 3] += ap * r[:, None]
-            g_g[slot] += torch.sum(a_s * r)
+            D[:, s : s + 3, s : s + 3] += torch.einsum("nra,nrb->nab", A, A)
+            g_p[:, s : s + 3] += torch.einsum("nra,nr->na", A, r)
 
-    # Mesh edges: per-slot scalar energy, symmetric in (i, j). The Elastic
-    # and Ogden families take the forward-mode slot Jacobian of
-    # ``deformable._mesh_slot_jacobian`` (``block_system.py:262-268``).
-    if spec.energy == "ARAP":
-        Jfull, r_slot = _arap_slot_jacobian(data, hyper, state, spec, src)
-    else:
-        L, r = D_._mesh_slot_jacobian(data, hyper, state, spec, src)
-        Jfull, r_slot = L.reshape(n, K, 18), r.reshape(n, K)
-    Ji, Jj, Jx = Jfull[..., 0:6], Jfull[..., 6:12], Jfull[..., 12:18]
-    D = D + 2.0 * torch.einsum("nka,nkb->nab", Ji, Ji)
-    Bt = 2.0 * torch.einsum("nka,nkb->nkab", Ji, Jj)
-    C[:, :, 2:8] += 2.0 * torch.einsum("nka,nkg->nag", Ji, Jx)
-    Hg[2:8, 2:8] += torch.einsum("nka,nkb->ab", Jx, Jx)
-    g_p = g_p + 2.0 * torch.einsum("nka,nk->na", Ji, r_slot)
-    g_g[2:8] += torch.einsum("nka,nk->a", Jx, r_slot)
+        # Depth edges, closed form: every mode's e depends on p only through
+        # z = (R p + t)[2], so de/dp = (de/dz) R[2, :] and de/ds is scalar.
+        if spec.depth != "none":
+            inv_sigma_d = 1.0 / hyper.depth_sigma
+            for slot, (p, sc, R, t, d) in enumerate((
+                (state.p1, state.s1, data.R1w, data.t1w, data.depth1),
+                (state.p2, state.s2, data.R2w, data.t2w, data.depth2),
+            )):
+                w = vm * inv_sigma_d
+                z = (p @ R.T + t)[:, 2]
+                if spec.depth == "fixed":
+                    e = d - z * sc
+                    de_dz = torch.ones_like(e) * (-sc)
+                    de_ds = torch.zeros_like(e)
+                elif spec.depth == "fixed_squared":
+                    u = d - z * sc
+                    e = u * u
+                    de_dz = -2.0 * u * sc
+                    de_ds = torch.zeros_like(e)
+                elif spec.depth == "scaled_squared":
+                    u = d / sc - z
+                    pen = torch.where(sc <= 0.0, 500.0, 1.0).to(dtype)
+                    e = pen * u * u
+                    de_dz = pen * (-2.0 * u)
+                    de_ds = pen * (-2.0 * u * d / (sc * sc))
+                else:  # "scaled": linear residual
+                    pen = torch.where(sc <= 0.0, 500.0**0.5, 1.0).to(dtype)
+                    e = pen * (d / sc - z)
+                    de_dz = torch.ones_like(e) * (-pen)
+                    de_ds = pen * (-d / (sc * sc))
+                r = w * e
+                ap = (w * de_dz)[:, None] * R[2, :][None, :]  # [N, 3]
+                a_s = w * de_ds
+                s = 3 * slot
+                D[:, s : s + 3, s : s + 3] += torch.einsum("na,nb->nab", ap, ap)
+                C[:, s : s + 3, slot] += ap * a_s[:, None]
+                Hg[slot, slot] += torch.sum(a_s * a_s)
+                g_p[:, s : s + 3] += ap * r[:, None]
+                g_g[slot] += torch.sum(a_s * r)
 
-    # Depth-scale prior edges (zero info => inert).
-    if spec.depth in ("scaled", "scaled_squared"):
-        for col, (sc, prior, info) in enumerate((
-            (state.s1, data.s1_prior, data.s1_info),
-            (state.s2, data.s2_prior, data.s2_info),
-        )):
-            Hg[col, col] += info
-            g_g[col] += info * (sc - prior)
+        # Mesh edges: per-slot scalar energy, symmetric in (i, j). The Elastic
+        # and Ogden families take the forward-mode slot Jacobian of
+        # ``deformable._mesh_slot_jacobian`` (``block_system.py:262-268``).
+        if spec.energy == "ARAP":
+            Jfull, r_slot = _arap_slot_jacobian(data, hyper, state, spec, src)
+        else:
+            L, r = D_._mesh_slot_jacobian(data, hyper, state, spec, src)
+            Jfull, r_slot = L.reshape(n, K, 18), r.reshape(n, K)
+        Ji, Jj, Jx = Jfull[..., 0:6], Jfull[..., 6:12], Jfull[..., 12:18]
+        D = D + 2.0 * torch.einsum("nka,nkb->nab", Ji, Ji)
+        Bt = 2.0 * torch.einsum("nka,nkb->nkab", Ji, Jj)
+        C[:, :, 2:8] += 2.0 * torch.einsum("nka,nkg->nag", Ji, Jx)
+        Hg[2:8, 2:8] += torch.einsum("nka,nkb->ab", Jx, Jx)
+        g_p = g_p + 2.0 * torch.einsum("nka,nk->na", Ji, r_slot)
+        g_g[2:8] += torch.einsum("nka,nk->a", Jx, r_slot)
 
-    if spec.one_set:
-        # Frozen first set: zero p1's rows and columns of H and its gradient
-        # entries (damping keeps the diagonal nonsingular).
-        m = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0], dtype=dtype, device=dev)
-        D = D * m[None, :, None] * m[None, None, :]
-        Bt = Bt * m[None, None, :, None] * m[None, None, None, :]
-        C = C * m[None, :, None]
-        g_p = g_p * m[None, :]
+        # Depth-scale prior edges (zero info => inert).
+        if spec.depth in ("scaled", "scaled_squared"):
+            for col, (sc, prior, info) in enumerate((
+                (state.s1, data.s1_prior, data.s1_info),
+                (state.s2, data.s2_prior, data.s2_info),
+            )):
+                Hg[col, col] += info
+                g_g[col] += info * (sc - prior)
 
-    return BlockSystem(D=D, Bt=Bt, C=C, Hg=Hg, g_p=g_p, g_g=g_g)
+        if spec.one_set:
+            # Frozen first set: zero p1's rows and columns of H and its gradient
+            # entries (damping keeps the diagonal nonsingular).
+            m = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0], dtype=dtype, device=dev)
+            D = D * m[None, :, None] * m[None, None, :]
+            Bt = Bt * m[None, None, :, None] * m[None, None, None, :]
+            C = C * m[None, :, None]
+            g_p = g_p * m[None, :]
+
+        return BlockSystem(D=D, Bt=Bt, C=C, Hg=Hg, g_p=g_p, g_g=g_g)
 
 
 def _split(v: torch.Tensor, n: int):
@@ -320,7 +322,7 @@ def pcg_flex(matvec: Callable, b: torch.Tensor, precond: Callable, iters: int, r
     p = z
     tol2 = rtol * rtol * torch.dot(b, b)
     k = 0
-    while k < iters and bool(torch.dot(r, r) > tol2):
+    while k < iters and tracing.read(torch.dot(r, r) > tol2, bool):
         Ap = matvec(p)
         rz = torch.dot(r, z)
         alpha = rz / (torch.dot(p, Ap) + TINY)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, jvp, vmap
 
+from .. import tracing
 from ..ops import arap as arap_ops
 from ..ops import camera as cam_ops
 from ..ops import lie
@@ -270,30 +271,31 @@ def robust_cost(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, s
                 src: NeighbourSource = None):
     """Total robustified chi2, the LM accept/reject merit (``deformable.py:350-391``);
     ``src``: see ``NeighbourSource``."""
-    vm = data.valid.to(state.p1.dtype)
-    e1 = _rep_errors(cam_kind, data, state.p1, data.R1w, data.t1w, data.kp1)
-    e2 = _rep_errors(cam_kind, data, state.p2, data.R2w, data.t2w, data.kp2)
-    chi2_1 = torch.sum(e1 * e1, dim=-1) * (data.inv_sigma2_1 * hyper.rep_w)
-    chi2_2 = torch.sum(e2 * e2, dim=-1) * (data.inv_sigma2_2 * hyper.rep_w)
-    rho1, _ = _huber_rho(chi2_1)
-    rho2, _ = _huber_rho(chi2_2)
-    cost_rep = torch.sum(vm * (rho1 + rho2))
+    with tracing.span("cost"):
+        vm = data.valid.to(state.p1.dtype)
+        e1 = _rep_errors(cam_kind, data, state.p1, data.R1w, data.t1w, data.kp1)
+        e2 = _rep_errors(cam_kind, data, state.p2, data.R2w, data.t2w, data.kp2)
+        chi2_1 = torch.sum(e1 * e1, dim=-1) * (data.inv_sigma2_1 * hyper.rep_w)
+        chi2_2 = torch.sum(e2 * e2, dim=-1) * (data.inv_sigma2_2 * hyper.rep_w)
+        rho1, _ = _huber_rho(chi2_1)
+        rho2, _ = _huber_rho(chi2_2)
+        cost_rep = torch.sum(vm * (rho1 + rho2))
 
-    info_d = 1.0 / (hyper.depth_sigma * hyper.depth_sigma)
-    ed1 = _depth_errors(data, state.p1, state.s1, data.R1w, data.t1w, data.depth1, spec.depth)
-    ed2 = _depth_errors(data, state.p2, state.s2, data.R2w, data.t2w, data.depth2, spec.depth)
-    cost_depth = torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
+        info_d = 1.0 / (hyper.depth_sigma * hyper.depth_sigma)
+        ed1 = _depth_errors(data, state.p1, state.s1, data.R1w, data.t1w, data.depth1, spec.depth)
+        ed2 = _depth_errors(data, state.p2, state.s2, data.R2w, data.t2w, data.depth2, spec.depth)
+        cost_depth = torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
 
-    info_a = hyper.arap_w * data.ntri * data.ntri
-    E = _arap_energies(data, state, spec, hyper, src)
-    cost = cost_rep + cost_depth + torch.sum(info_a * E * E)
+        info_a = hyper.arap_w * data.ntri * data.ntri
+        E = _arap_energies(data, state, spec, hyper, src)
+        cost = cost_rep + cost_depth + torch.sum(info_a * E * E)
 
-    if spec.depth in ("scaled", "scaled_squared"):
-        cost = cost + (
-            data.s1_info * (state.s1 - data.s1_prior) ** 2
-            + data.s2_info * (state.s2 - data.s2_prior) ** 2
-        )
-    return cost
+        if spec.depth in ("scaled", "scaled_squared"):
+            cost = cost + (
+                data.s1_info * (state.s1 - data.s1_prior) ** 2
+                + data.s2_info * (state.s2 - data.s2_prior) ** 2
+            )
+        return cost
 
 
 def residual_vector(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
@@ -458,7 +460,7 @@ def _edge_blocks(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, 
     if spec.depth in ("scaled", "scaled_squared"):
         sqrt_i = torch.stack([torch.sqrt(data.s1_info), torch.sqrt(data.s2_info)]).to(dtype)
         r_s = (sqrt_i * torch.stack([state.s1 - data.s1_prior, state.s2 - data.s2_prior]).to(dtype)).reshape(2, 1)
-        idx_s = torch.tensor([[i_s1], [i_s2]], dtype=idx_p1.dtype, device=dev)
+        idx_s = (i_s1 + torch.arange(2, dtype=idx_p1.dtype, device=dev))[:, None]  # [[i_s1], [i_s2]]
         blocks.append((sqrt_i.reshape(2, 1, 1), r_s, idx_s))
 
     if spec.one_set:
@@ -493,22 +495,23 @@ def build_system(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, 
     scatter-set semantics (which on CUDA pick an arbitrary writer among
     duplicates) only exact zeros make that deterministic.
     """
-    if spec.one_set:
-        return build_system_jacfwd(cam_kind, data, hyper, state, spec)
-    dim = _tangent_dim(state.p1.shape[0])
-    blocks = _edge_blocks(cam_kind, data, hyper, state, spec)
-    rows = sum(L.shape[0] * L.shape[1] for L, _, _ in blocks)
-    J = torch.zeros((rows, dim), dtype=state.p1.dtype, device=state.p1.device)
-    rs = []
-    off = 0
-    for L, r_, idx in blocks:
-        M, rr, dd = L.shape
-        cols = idx[:, None, :].expand(M, rr, dd).reshape(M * rr, dd)
-        J[off : off + M * rr].scatter_(1, cols, L.reshape(M * rr, dd))
-        rs.append(r_.reshape(-1))
-        off += M * rr
-    r = torch.cat(rs)
-    return J.T @ J, J.T @ r
+    with tracing.span("assembly"):
+        if spec.one_set:
+            return build_system_jacfwd(cam_kind, data, hyper, state, spec)
+        dim = _tangent_dim(state.p1.shape[0])
+        blocks = _edge_blocks(cam_kind, data, hyper, state, spec)
+        rows = sum(L.shape[0] * L.shape[1] for L, _, _ in blocks)
+        J = torch.zeros((rows, dim), dtype=state.p1.dtype, device=state.p1.device)
+        rs = []
+        off = 0
+        for L, r_, idx in blocks:
+            M, rr, dd = L.shape
+            cols = idx[:, None, :].expand(M, rr, dd).reshape(M * rr, dd)
+            J[off : off + M * rr].scatter_(1, cols, L.reshape(M * rr, dd))
+            rs.append(r_.reshape(-1))
+            off += M * rr
+        r = torch.cat(rs)
+        return J.T @ J, J.T @ r
 
 
 def assemble_diag(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import arap as arap_ops
 from ..ops import camera as cam_ops
 from ..ops import lie
@@ -139,9 +140,9 @@ def _hyper(weights, cfg: OuterConfig, like) -> deformable.Hyper:
 
 def _update_magnitude(valid, new_state, state) -> float:
     """Summed point displacement over both sets (``outer.py:161-164``)."""
-    vm = np.asarray(valid.cpu() if isinstance(valid, torch.Tensor) else valid, dtype=bool)
-    d1 = np.linalg.norm((new_state.p1 - state.p1).cpu().numpy()[vm], axis=-1).sum()
-    d2 = np.linalg.norm((new_state.p2 - state.p2).cpu().numpy()[vm], axis=-1).sum()
+    vm = np.asarray(tracing.read(valid) if isinstance(valid, torch.Tensor) else valid, dtype=bool)
+    d1 = np.linalg.norm(tracing.read(new_state.p1 - state.p1)[vm], axis=-1).sum()
+    d2 = np.linalg.norm(tracing.read(new_state.p2 - state.p2)[vm], axis=-1).sum()
     return float(d1 + d2)
 
 
@@ -269,14 +270,15 @@ def nm_weight_search(
     e_ref = torch.clamp(torch.as_tensor(e_ref, dtype=dtype, device=dev), min=TINY)
 
     def solve(zf):
-        w = from_search(zf)
-        hyper = deformable.Hyper(
-            rep_w=w[0], arap_w=w[2], depth_sigma=sigma_d, global_w=w[1], alpha=alpha, beta=beta,
-        )
-        res = deformable.solve_pair(cam_kind, data, hyper, state0, n_inner, spec)
-        if stats is not None:
-            stats.add(res)
-        return w, res
+        with tracing.span("outer.eval"):
+            w = from_search(zf)
+            hyper = deformable.Hyper(
+                rep_w=w[0], arap_w=w[2], depth_sigma=sigma_d, global_w=w[1], alpha=alpha, beta=beta,
+            )
+            res = deformable.solve_pair(cam_kind, data, hyper, state0, n_inner, spec)
+            if stats is not None:
+                stats.add(res)
+            return w, res
 
     def objective(zf):
         _, res = solve(zf)
@@ -307,7 +309,7 @@ def nm_weight_search(
         probes = torch.where(bounded, zlb_f + grid01 * (zub_f - zlb_f), z0)
         probes = torch.cat([z0[None].to(dtype), probes], dim=0)
         fprobe = objective_batch(probes)
-        zc = probes[torch.argmin(fprobe)]
+        zc = probes[tracing.read(torch.argmin(fprobe), int)]
     else:
         zc = z0.to(dtype)
 
@@ -332,9 +334,9 @@ def nm_weight_search(
         xic = torch.clamp(xo - R_C * (xo - worst), zlb_f, zub_f)
         fr = objective(xr)
 
-        need_e = bool(fr < fb)
-        try_oc = bool((fr >= fsw) & (fr < fw))
-        try_ic = bool((fr >= fsw) & ~(fr < fw))
+        need_e = tracing.read(fr < fb, bool)
+        try_oc = tracing.read((fr >= fsw) & (fr < fw), bool)
+        try_ic = tracing.read((fr >= fsw) & ~(fr < fw), bool)
         fe = foc = fic = inf
         if need_e:
             fe = objective(xe)
@@ -343,10 +345,10 @@ def nm_weight_search(
         elif try_ic:
             fic = objective(xic)
 
-        accept_expand = need_e and bool(fe < fr)
-        accept_reflect = bool((fb <= fr) & (fr < fsw)) or (need_e and not bool(fe < fr))
-        accept_oc = try_oc and bool(foc <= fr)
-        accept_ic = try_ic and bool(fic < fw)
+        accept_expand = need_e and tracing.read(fe < fr, bool)
+        accept_reflect = tracing.read((fb <= fr) & (fr < fsw), bool) or (need_e and not tracing.read(fe < fr, bool))
+        accept_oc = try_oc and tracing.read(foc <= fr, bool)
+        accept_ic = try_ic and tracing.read(fic < fw, bool)
         do_shrink = (try_oc and not accept_oc) or (try_ic and not accept_ic)
 
         if do_shrink:
@@ -368,10 +370,10 @@ def nm_weight_search(
         # NLopt xtol semantics, per coordinate (``outer.py:454-459``).
         diam = torch.max(torch.abs(simplex - simplex[0:1]), dim=0).values
         xref = torch.abs(simplex[0])
-        if bool(torch.all((diam < xtol_abs) | (diam < xtol_rel * xref))):
+        if tracing.read(torch.all((diam < xtol_abs) | (diam < xtol_rel * xref)), bool):
             break
 
-    ibest = torch.argmin(fvals)
+    ibest = tracing.read(torch.argmin(fvals), int)
     wbest, res = solve(simplex[ibest])
     return wbest, res.state, fvals[ibest]
 
@@ -394,157 +396,164 @@ def deformation_optimization(
 ) -> OuterResult:
     """Full outer loop (``outer.py:481-714``) on the device of ``state``.
     ``on_round(i, state, weights)`` fires after each non-final round."""
-    dev = state.p1.device
-    stats = SolveStats()
-    n_points = 2 * int(np.asarray(valid).sum())
-    weights = np.array([cfg.rep_w, cfg.global_w, cfg.arap_w], dtype=np.float64)
-    lb = np.asarray(cfg.lower_bounds, dtype=np.float64)
-    ub = np.asarray(cfg.upper_bounds, dtype=np.float64)
+    with tracing.span("outer.search"):
+        dev = state.p1.device
+        stats = SolveStats()
+        n_points = 2 * int(np.asarray(valid).sum())
+        weights = np.array([cfg.rep_w, cfg.global_w, cfg.arap_w], dtype=np.float64)
+        lb = np.asarray(cfg.lower_bounds, dtype=np.float64)
+        ub = np.asarray(cfg.upper_bounds, dtype=np.float64)
 
-    update = 100.0
-    rounds = 0
-    f_prev = None
-    e_ref = None
-    data = None
-    for i in range(1, cfg.n_optimizations + 1):
-        if update < 1e-4 * n_points:
-            break
-        rounds = i
+        update = 100.0
+        rounds = 0
+        f_prev = None
+        e_ref = None
+        data = None
+        for i in range(1, cfg.n_optimizations + 1):
+            if update < 1e-4 * n_points:
+                break
+            rounds = i
 
-        if cfg.opt_selection == "open3DArap":
-            # ``arapOpen3DOptimization`` (``outer.py:515-543``): deform the
-            # first keyframe's mesh as rigidly as possible and take it as the
-            # second point set; only vertex 0 is pinned, to the first moved
-            # point, as the reference's zero-initialised constraint list does.
-            vidx = torch.as_tensor(np.nonzero(np.asarray(valid, dtype=bool))[0], device=dev)
-            p1v = state.p1[vidx]
-            ctx = mesh_ops.build_mesh_context(p1v.cpu().numpy(), backend=mesh_backend)
-            deformed = arap_ops.arap_deform(
-                p_rest=p1v,
-                nbr=torch.as_tensor(ctx.nbr, dtype=torch.int64, device=dev),
-                nbr_mask=torch.as_tensor(ctx.nbr_mask, device=dev),
-                weights=torch.as_tensor(ctx.weights, dtype=FP, device=dev),
-                constraint_idx=torch.zeros(1, dtype=torch.int64, device=dev),
-                constraint_pos=state.p2[vidx[:1]],
-                iters=cfg.n_opt_iterations,
+            with tracing.span("outer.round"):
+                if cfg.opt_selection == "open3DArap":
+                    # ``arapOpen3DOptimization`` (``outer.py:515-543``): deform the
+                    # first keyframe's mesh as rigidly as possible and take it as the
+                    # second point set; only vertex 0 is pinned, to the first moved
+                    # point, as the reference's zero-initialised constraint list does.
+                    vidx = torch.as_tensor(np.nonzero(np.asarray(valid, dtype=bool))[0], device=dev)
+                    p1v = state.p1[vidx]
+                    with tracing.span("outer.mesh"):
+                        ctx = mesh_ops.build_mesh_context(tracing.read(p1v), backend=mesh_backend)
+                    deformed = arap_ops.arap_deform(
+                        p_rest=p1v,
+                        nbr=torch.as_tensor(ctx.nbr, dtype=torch.int64, device=dev),
+                        nbr_mask=torch.as_tensor(ctx.nbr_mask, device=dev),
+                        weights=torch.as_tensor(ctx.weights, dtype=FP, device=dev),
+                        constraint_idx=torch.zeros(1, dtype=torch.int64, device=dev),
+                        constraint_pos=state.p2[vidx[:1]],
+                        iters=cfg.n_opt_iterations,
+                    )
+                    new_p2 = state.p2.clone()
+                    new_p2[vidx] = deformed
+                    update = tracing.read(torch.linalg.norm(new_p2[vidx] - state.p2[vidx], dim=-1).sum(), float)
+                    state = state._replace(p2=new_p2)
+                    if on_round is not None and i != cfg.n_optimizations:
+                        on_round(i, state, weights)
+                    continue
+
+                with tracing.span("outer.mesh"):
+                    data = deformable.make_pair_data(
+                        kp1=kp1, kp2=kp2, depth1=d1, depth2=d2, valid=valid, cam_params=cam_params,
+                        T1w=T1w, T2w=T2w, p1=tracing.read(state.p1), p2=tracing.read(state.p2),
+                        mesh_backend=mesh_backend, scale_priors=scale_priors, device=dev,
+                    )
+
+                if cfg.opt_selection == "twoOptimizations" and cfg.weights_selection == "eigen":
+                    # ``EigenOptimization.h:30-63`` (``outer.py:562-578``): LM over the
+                    # weights with residuals (log sigma_c1)^2 and (log sigma_c2)^2.
+                    def residuals(x):
+                        with tracing.span("outer.eval"):
+                            cand_state, _ = arap_optimization(cam_kind, data, state, x, cfg, stats)
+                            pix = metrics_mod.pixels_stand_dev(
+                                cam_kind, cam_params, T1w, T2w, cand_state.p1, cand_state.p2, kp1, kp2, valid,
+                                device=dev,
+                            )
+                            return np.array([np.log(max(pix.desvc1, 1e-300)) ** 2,
+                                             np.log(max(pix.desvc2, 1e-300)) ** 2])
+
+                    weights = _numdiff_lm(residuals, weights, lb, ub, max_evals=10)
+                    state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
+                elif cfg.opt_selection == "twoOptimizations":
+                    wide = (lb > 0) & (ub / np.maximum(lb, 1e-300) > 1e2)
+
+                    def to_search(x):
+                        return np.where(wide, np.log10(np.maximum(x, 1e-300)), x)
+
+                    free_idx = np.nonzero(ub > lb)[0]
+                    if len(free_idx) == 0:
+                        state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
+                    else:
+                        spec = deformable.MODELS[cfg.model]
+                        sigma_d = deformable.model_depth_sigma(cfg.model)
+                        if sigma_d is None:
+                            sigma_d = float(cfg.depth_sigma)
+                        if e_ref is None:
+                            # Round-1 snapshot energy: the fixed tie-break normalizer.
+                            e_ref = tracing.read(torch.sum(deformable._arap_energies(
+                                data, state, spec, _hyper((1.0, 1.0, 1.0), cfg, state.p1)
+                            )), float)
+                        nm_iters = max(1, (int(cfg.nlopt_max_eval) - (len(free_idx) + 1)) * 2 // 3)
+                        f32 = dict(dtype=FP, device=dev)
+                        w_best, new_state, f_best = nm_weight_search(
+                            cam_kind,
+                            data,
+                            state,
+                            torch.as_tensor(to_search(weights), **f32),
+                            torch.as_tensor(free_idx, dtype=torch.int64, device=dev),
+                            torch.as_tensor(to_search(lb), **f32),
+                            torch.as_tensor(to_search(ub), **f32),
+                            torch.as_tensor(wide, device=dev),
+                            _scalar(sigma_d, state.p1),
+                            _scalar(cfg.alpha, state.p1),
+                            _scalar(cfg.beta, state.p1),
+                            n_inner=int(cfg.n_opt_iterations),
+                            spec=spec,
+                            nm_iters=nm_iters,
+                            xtol_rel=float(cfg.nlopt_rel_tol),
+                            xtol_abs=float(cfg.nlopt_abs_tol),
+                            probe=(i == 1),
+                            e_ref=e_ref,
+                            stats=stats,
+                        )
+                        f_best = tracing.read(f_best, float)
+                        if f_prev is not None and not (f_best < f_prev - 1e-6):
+                            # Monotone outer acceptance (``outer.py:638-647``).
+                            break
+                        f_prev = f_best
+                        weights = tracing.read(w_best).astype(np.float64)
+                        update = _update_magnitude(data.valid, new_state, state)
+                        state = new_state
+                else:
+                    state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
+
+                if on_round is not None and i != cfg.n_optimizations:
+                    on_round(i, state, weights)
+
+        # Rigid-hypothesis model selection (``outer.py:660-709``).
+        rigid_accepted = False
+        spec = deformable.MODELS.get(cfg.model, deformable.ModelSpec())
+        if cfg.rigid_select and rounds > 0 and data is not None and not spec.one_set:
+            from . import rigid as rigid_mod
+
+            sigma_d = deformable.model_depth_sigma(cfg.model)
+            if sigma_d is None:
+                sigma_d = float(cfg.depth_sigma)
+            cand, diag = rigid_mod.solve_rigid(
+                cam_kind, data, _hyper(weights, cfg, state.p1), state,
+                max(30, int(cfg.n_opt_iterations)), spec, stats=stats,
             )
-            new_p2 = state.p2.clone()
-            new_p2[vidx] = deformed
-            update = float(torch.linalg.norm(new_p2[vidx] - state.p2[vidx], dim=-1).sum())
-            state = state._replace(p2=new_p2)
-            if on_round is not None and i != cfg.n_optimizations:
-                on_round(i, state, weights)
-            continue
+            s1g, s2g = rigid_mod._pixel_sigmas(cam_kind, data, state.p1, state.p2)
+            dg1, dg2 = rigid_mod.depth_discrepancy(data, state.p1, state.p2, state.s1, state.s2)
 
-        data = deformable.make_pair_data(
-            kp1=kp1, kp2=kp2, depth1=d1, depth2=d2, valid=valid, cam_params=cam_params,
-            T1w=T1w, T2w=T2w, p1=state.p1.cpu().numpy(), p2=state.p2.cpu().numpy(),
-            mesh_backend=mesh_backend, scale_priors=scale_priors, device=dev,
-        )
-
-        if cfg.opt_selection == "twoOptimizations" and cfg.weights_selection == "eigen":
-            # ``EigenOptimization.h:30-63`` (``outer.py:562-578``): LM over the
-            # weights with residuals (log sigma_c1)^2 and (log sigma_c2)^2.
-            def residuals(x):
-                cand_state, _ = arap_optimization(cam_kind, data, state, x, cfg, stats)
-                pix = metrics_mod.pixels_stand_dev(
-                    cam_kind, cam_params, T1w, T2w, cand_state.p1, cand_state.p2, kp1, kp2, valid, device=dev
+            def one_sided(s1, s2):
+                return (
+                    max(np.log(max(tracing.read(s1, float), 1e-300)), 0.0) ** 2
+                    + max(np.log(max(tracing.read(s2, float), 1e-300)), 0.0) ** 2
                 )
-                return np.array([np.log(max(pix.desvc1, 1e-300)) ** 2, np.log(max(pix.desvc2, 1e-300)) ** 2])
 
-            weights = _numdiff_lm(residuals, weights, lb, ub, max_evals=10)
-            state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
-        elif cfg.opt_selection == "twoOptimizations":
-            wide = (lb > 0) & (ub / np.maximum(lb, 1e-300) > 1e2)
+            f_rigid = one_sided(diag.sigma1, diag.sigma2)
+            f_general = one_sided(s1g, s2g)
+            depth_rigid = max(tracing.read(diag.depth_rms1, float), tracing.read(diag.depth_rms2, float))
+            depth_general = max(tracing.read(dg1, float), tracing.read(dg2, float))
+            if (
+                np.isfinite(f_rigid)
+                and f_rigid <= f_general + 1e-9
+                and depth_rigid <= RIGID_DEPTH_TAU * max(depth_general, sigma_d)
+            ):
+                state = cand
+                rigid_accepted = True
 
-            def to_search(x):
-                return np.where(wide, np.log10(np.maximum(x, 1e-300)), x)
-
-            free_idx = np.nonzero(ub > lb)[0]
-            if len(free_idx) == 0:
-                state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
-            else:
-                spec = deformable.MODELS[cfg.model]
-                sigma_d = deformable.model_depth_sigma(cfg.model)
-                if sigma_d is None:
-                    sigma_d = float(cfg.depth_sigma)
-                if e_ref is None:
-                    # Round-1 snapshot energy: the fixed tie-break normalizer.
-                    e_ref = float(torch.sum(deformable._arap_energies(
-                        data, state, spec, _hyper((1.0, 1.0, 1.0), cfg, state.p1)
-                    )))
-                nm_iters = max(1, (int(cfg.nlopt_max_eval) - (len(free_idx) + 1)) * 2 // 3)
-                f32 = dict(dtype=FP, device=dev)
-                w_best, new_state, f_best = nm_weight_search(
-                    cam_kind,
-                    data,
-                    state,
-                    torch.as_tensor(to_search(weights), **f32),
-                    torch.as_tensor(free_idx, dtype=torch.int64, device=dev),
-                    torch.as_tensor(to_search(lb), **f32),
-                    torch.as_tensor(to_search(ub), **f32),
-                    torch.as_tensor(wide, device=dev),
-                    _scalar(sigma_d, state.p1),
-                    _scalar(cfg.alpha, state.p1),
-                    _scalar(cfg.beta, state.p1),
-                    n_inner=int(cfg.n_opt_iterations),
-                    spec=spec,
-                    nm_iters=nm_iters,
-                    xtol_rel=float(cfg.nlopt_rel_tol),
-                    xtol_abs=float(cfg.nlopt_abs_tol),
-                    probe=(i == 1),
-                    e_ref=e_ref,
-                    stats=stats,
-                )
-                f_best = float(f_best)
-                if f_prev is not None and not (f_best < f_prev - 1e-6):
-                    # Monotone outer acceptance (``outer.py:638-647``).
-                    break
-                f_prev = f_best
-                weights = w_best.cpu().numpy().astype(np.float64)
-                update = _update_magnitude(data.valid, new_state, state)
-                state = new_state
-        else:
-            state, update = arap_optimization(cam_kind, data, state, weights, cfg, stats)
-
-        if on_round is not None and i != cfg.n_optimizations:
-            on_round(i, state, weights)
-
-    # Rigid-hypothesis model selection (``outer.py:660-709``).
-    rigid_accepted = False
-    spec = deformable.MODELS.get(cfg.model, deformable.ModelSpec())
-    if cfg.rigid_select and rounds > 0 and data is not None and not spec.one_set:
-        from . import rigid as rigid_mod
-
-        sigma_d = deformable.model_depth_sigma(cfg.model)
-        if sigma_d is None:
-            sigma_d = float(cfg.depth_sigma)
-        cand, diag = rigid_mod.solve_rigid(
-            cam_kind, data, _hyper(weights, cfg, state.p1), state,
-            max(30, int(cfg.n_opt_iterations)), spec, stats=stats,
+        return OuterResult(
+            state=state, weights=weights, rounds=rounds, last_update=update,
+            rigid_accepted=rigid_accepted, stats=stats,
         )
-        s1g, s2g = rigid_mod._pixel_sigmas(cam_kind, data, state.p1, state.p2)
-        dg1, dg2 = rigid_mod.depth_discrepancy(data, state.p1, state.p2, state.s1, state.s2)
-
-        def one_sided(s1, s2):
-            return (
-                max(np.log(max(float(s1), 1e-300)), 0.0) ** 2
-                + max(np.log(max(float(s2), 1e-300)), 0.0) ** 2
-            )
-
-        f_rigid = one_sided(diag.sigma1, diag.sigma2)
-        f_general = one_sided(s1g, s2g)
-        depth_rigid = max(float(diag.depth_rms1), float(diag.depth_rms2))
-        depth_general = max(float(dg1), float(dg2))
-        if (
-            np.isfinite(f_rigid)
-            and f_rigid <= f_general + 1e-9
-            and depth_rigid <= RIGID_DEPTH_TAU * max(depth_general, sigma_d)
-        ):
-            state = cand
-            rigid_accepted = True
-
-    return OuterResult(
-        state=state, weights=weights, rounds=rounds, last_update=update,
-        rigid_accepted=rigid_accepted, stats=stats,
-    )

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
+from .. import tracing
 from ..ops import camera as cam_ops
 from ..ops import lie
 from ..ops import lm as lm_ops
@@ -84,40 +85,42 @@ def residual_vector_rigid(cam_kind, data, hyper, state: RigidState, spec=deforma
 
 def robust_cost_rigid(cam_kind, data, hyper, state, spec=deformable.ModelSpec()):
     """Robustified chi2 of the rigid model (``rigid.py:149-182``)."""
-    vm = data.valid.to(state.p1.dtype)
-    p2 = _p2_of(state)
+    with tracing.span("cost"):
+        vm = data.valid.to(state.p1.dtype)
+        p2 = _p2_of(state)
 
-    def rep_cost(p, R, t, kp, inv_s2):
-        e = kp - cam_ops.project(cam_kind, data.cam_params, lie.apply(R, t, p))
-        chi2 = torch.sum(e * e, dim=-1) * inv_s2 * hyper.rep_w
-        rho, _ = deformable._huber_rho(chi2)
-        return torch.sum(vm * rho)
+        def rep_cost(p, R, t, kp, inv_s2):
+            e = kp - cam_ops.project(cam_kind, data.cam_params, lie.apply(R, t, p))
+            chi2 = torch.sum(e * e, dim=-1) * inv_s2 * hyper.rep_w
+            rho, _ = deformable._huber_rho(chi2)
+            return torch.sum(vm * rho)
 
-    cost = rep_cost(state.p1, data.R1w, data.t1w, data.kp1, data.inv_sigma2_1)
-    cost = cost + rep_cost(p2, data.R2w, data.t2w, data.kp2, data.inv_sigma2_2)
+        cost = rep_cost(state.p1, data.R1w, data.t1w, data.kp1, data.inv_sigma2_1)
+        cost = cost + rep_cost(p2, data.R2w, data.t2w, data.kp2, data.inv_sigma2_2)
 
-    info_d = 1.0 / (hyper.depth_sigma * hyper.depth_sigma)
-    ed1 = deformable._depth_errors(data, state.p1, state.s1, data.R1w, data.t1w, data.depth1, spec.depth)
-    ed2 = deformable._depth_errors(data, p2, state.s2, data.R2w, data.t2w, data.depth2, spec.depth)
-    cost = cost + torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
+        info_d = 1.0 / (hyper.depth_sigma * hyper.depth_sigma)
+        ed1 = deformable._depth_errors(data, state.p1, state.s1, data.R1w, data.t1w, data.depth1, spec.depth)
+        ed2 = deformable._depth_errors(data, p2, state.s2, data.R2w, data.t2w, data.depth2, spec.depth)
+        cost = cost + torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
 
-    cost = cost + data.s1_info * (state.s1 - data.s1_prior) ** 2
-    cost = cost + data.s2_info * (state.s2 - data.s2_prior) ** 2
-    return cost
+        cost = cost + data.s1_info * (state.s1 - data.s1_prior) ** 2
+        cost = cost + data.s2_info * (state.s2 - data.s2_prior) ** 2
+        return cost
 
 
 def build_system_rigid(cam_kind, data, hyper, state, spec=deformable.ModelSpec()):
     """Dense Gauss-Newton normal equations [3N+8]^2 via jacfwd
     (``rigid.py:185-197``)."""
-    dim = _rigid_tangent_dim(state.p1.shape[0])
+    with tracing.span("assembly"):
+        dim = _rigid_tangent_dim(state.p1.shape[0])
 
-    def f(delta):
-        r = residual_vector_rigid(cam_kind, data, hyper, apply_delta_rigid(state, delta), spec)
-        return r, r
+        def f(delta):
+            r = residual_vector_rigid(cam_kind, data, hyper, apply_delta_rigid(state, delta), spec)
+            return r, r
 
-    zero = torch.zeros((dim,), dtype=state.p1.dtype, device=state.p1.device)
-    J, r = jacfwd(f, has_aux=True)(zero)
-    return J.T @ J, J.T @ r
+        zero = torch.zeros((dim,), dtype=state.p1.dtype, device=state.p1.device)
+        J, r = jacfwd(f, has_aux=True)(zero)
+        return J.T @ J, J.T @ r
 
 
 class RigidDiagnostics(NamedTuple):
@@ -224,7 +227,7 @@ def _one_rigid_round(cam_kind, data, hyper, state, n_iterations, spec, stats=Non
     best, best_cost = None, None
     for r0 in inits:
         rs, cost = _solve_core(cam_kind, data, hyper, r0, n_iterations, spec, stats)
-        if best is None or bool(cost < best_cost):
+        if best is None or tracing.read(cost < best_cost, bool):
             best, best_cost = rs, cost
 
     rs = best
@@ -242,24 +245,26 @@ def solve_rigid(cam_kind, data, hyper, state0, n_iterations, spec=deformable.Mod
                 max_restarts: int = 5, stats=None):
     """Restarted multi-start rigid LM (``rigid.py:347-395``); returns
     (PairState candidate, diagnostics)."""
-    sigma_d = torch.clamp(hyper.depth_sigma, min=TINY)
+    with tracing.span("rigid.select"):
+        sigma_d = torch.clamp(hyper.depth_sigma, min=TINY)
 
-    def score(diag: RigidDiagnostics) -> float:
-        return float(
-            diag.sigma1**2 + diag.sigma2**2
-            + (diag.depth_rms1**2 + diag.depth_rms2**2) / (sigma_d * sigma_d)
-        )
+        def score(diag: RigidDiagnostics) -> float:
+            return tracing.read(
+                diag.sigma1**2 + diag.sigma2**2
+                + (diag.depth_rms1**2 + diag.depth_rms2**2) / (sigma_d * sigma_d),
+                float,
+            )
 
-    cur = state0
-    best = None
-    best_score = np.inf
-    for _ in range(max_restarts):
-        cand, diag = _one_rigid_round(cam_kind, data, hyper, cur, n_iterations, spec, stats)
-        s = score(diag)
-        if not np.isfinite(s) or s >= best_score - 1e-9:
-            break
-        best, best_score = (cand, diag), s
-        cur = cand
-    if best is None:
-        best = (cand, diag)
-    return best
+        cur = state0
+        best = None
+        best_score = np.inf
+        for _ in range(max_restarts):
+            cand, diag = _one_rigid_round(cam_kind, data, hyper, cur, n_iterations, spec, stats)
+            s = score(diag)
+            if not np.isfinite(s) or s >= best_score - 1e-9:
+                break
+            best, best_score = (cand, diag), s
+            cur = cand
+        if best is None:
+            best = (cand, diag)
+        return best

@@ -15,9 +15,10 @@ design. The TPU-only parts of that module (the lane "planes" transposes and
   on anything else. ``LAUNCHES``/``LAUNCHES_BY_DIM`` count its calls (one
   cooperative CUDA launch each); the kernel adds the iterations it took to
   a running total on the device (``iterations_total``), which nothing in
-  the LM loop reads. A call allocates one tensor, its result (x and the
-  iteration count); the kernel's workspace is kept per device and point
-  count (``_workspace``).
+  the LM loop reads. While tracing is on, each launch is timed by CUDA
+  events (``tracing.kernel``, family ``kernel2``). A call allocates one
+  tensor, its result (x and the iteration count); the kernel's workspace is
+  kept per device and point count (``_workspace``).
 - ``pcg_block_system_plain`` is ``pcg_flex(block_matvec,
   block_jacobi_apply)`` with the same arguments: the CPU path and the
   oracle the kernel is held against.
@@ -32,6 +33,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from . import _nvcc
 
 # Calls of the kernel wrapper (one cooperative launch each), in all and by
@@ -132,12 +134,13 @@ def _solve(sys, nbr: torch.Tensor, b: torch.Tensor, lam, iters: int, rtol: float
         lam_t = _nvcc.lam_tensor(lam, b)
     out = torch.empty(6 * n + 9, dtype=torch.float32, device=dev)
     x = out.data_ptr()
-    err = lib.tids_pcg_solve(
-        D.data_ptr(), Bt.data_ptr(), C.data_ptr(), Hg.data_ptr(), nbr.data_ptr(), b.data_ptr(),
-        lam_t.data_ptr(), x, n, K, int(iters), float(rtol) * float(rtol),
-        _workspace(lib, dev, n, K).data_ptr(), x + 4 * (6 * n + 8), iterations_total(dev).data_ptr(),
-        _nvcc.stream_ptr(dev),
-    )
+    ws = _workspace(lib, dev, n, K).data_ptr()
+    with tracing.kernel("kernel2", dev):
+        err = lib.tids_pcg_solve(
+            D.data_ptr(), Bt.data_ptr(), C.data_ptr(), Hg.data_ptr(), nbr.data_ptr(), b.data_ptr(),
+            lam_t.data_ptr(), x, n, K, int(iters), float(rtol) * float(rtol),
+            ws, x + 4 * (6 * n + 8), iterations_total(dev).data_ptr(), _nvcc.stream_ptr(dev),
+        )
     if err != 0:
         raise RuntimeError(f"block-PCG kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1

@@ -16,7 +16,9 @@ bound and design.
   in ONE launch of the same kernel, every member bit for bit the single
   launch's result. Both go through the kernel's batched entry (a single
   solve is a batch of one). ``LAUNCHES_BATCHED`` counts its calls, and
-  ``LAUNCHES_BATCHED_BY_SHAPE`` by (batch, dim).
+  ``LAUNCHES_BATCHED_BY_SHAPE`` by (batch, dim). While tracing is on,
+  each launch of either is timed by CUDA events (``tracing.kernel``,
+  family ``kernel1``).
 - ``solve_damped_cholesky_plain`` is the same formula in torch
   (``cholesky_ex`` + ``cholesky_solve``). It returns NaN where the
   factorization fails, as ``jax.scipy.linalg.cho_factor`` does, so that LM
@@ -36,6 +38,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from ..precision import TINY
 from . import _nvcc
 
@@ -123,10 +126,11 @@ def _launch(name: str, H: torch.Tensor, g: torch.Tensor, lam_t: torch.Tensor) ->
     L = torch.empty(B, npad * npad, **opts)
     Linv = torch.empty(B, npad * 32, **opts)
     vecs = torch.empty(B, 4, npad, **opts)  # s, b, y, x0 of each system
-    err = lib.tids_damped_solve_batched(
-        H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), B, n,
-        L.data_ptr(), Linv.data_ptr(), vecs.data_ptr(), _nvcc.stream_ptr(H.device),
-    )
+    with tracing.kernel("kernel1", H.device):
+        err = lib.tids_damped_solve_batched(
+            H.data_ptr(), g.data_ptr(), lam_t.data_ptr(), x.data_ptr(), B, n,
+            L.data_ptr(), Linv.data_ptr(), vecs.data_ptr(), _nvcc.stream_ptr(H.device),
+        )
     if err != 0:
         raise RuntimeError(f"damped-Cholesky kernel launch failed ({name}, {B} x {n}): cudaError_t {err}")
     return x

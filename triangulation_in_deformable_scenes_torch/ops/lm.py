@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..precision import TINY
 from .damped_cholesky import (
     damped_solve_batched_cuda,
@@ -94,37 +95,39 @@ def lm_optimize_general(
     one that sums over every rank (``parallel/dist.py``), so that every rank
     reads the same accept decision.
     """
-    F0_init = robust_cost(state0)
-    state, F = state0, F0_init
-    lam = torch.full((), -1.0, dtype=F.dtype, device=F.device)
-    nu = torch.full((), 2.0, dtype=F.dtype, device=F.device)
-    n_accepted = 0
-    n_solves = 0
-    for _ in range(n_iterations):
-        solve, g, diag_max = make_step(state)
-        lam = torch.where(lam < 0, TAU * diag_max, lam)
-        accepted = False
-        for _ in range(max_trials):
-            delta = solve(lam)
-            n_solves += 1
-            cand = apply_delta(state, delta)
-            F1 = robust_cost(cand)
-            scale = dot(delta, lam * delta - g) + TINY
-            rho = (F - F1) / scale
-            ok_t = (rho > 0) & torch.isfinite(F1)
-            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            ok = bool(ok_t)
-            if ok:
-                lam = lam * factor
-                nu = torch.full_like(nu, 2.0)
-                state, F = cand, F1
-                accepted = True
+    with tracing.span("lm.solve"):
+        F0_init = robust_cost(state0)
+        state, F = state0, F0_init
+        lam = torch.full((), -1.0, dtype=F.dtype, device=F.device)
+        nu = torch.full((), 2.0, dtype=F.dtype, device=F.device)
+        n_accepted = 0
+        n_solves = 0
+        for _ in range(n_iterations):
+            solve, g, diag_max = make_step(state)
+            lam = torch.where(lam < 0, TAU * diag_max, lam)
+            accepted = False
+            for _ in range(max_trials):
+                with tracing.span("lm.trial"):
+                    delta = solve(lam)
+                    n_solves += 1
+                    cand = apply_delta(state, delta)
+                    F1 = robust_cost(cand)
+                    scale = dot(delta, lam * delta - g) + TINY
+                    rho = (F - F1) / scale
+                    ok_t = (rho > 0) & torch.isfinite(F1)
+                    factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                    ok = tracing.read(ok_t, bool)
+                if ok:
+                    lam = lam * factor
+                    nu = torch.full_like(nu, 2.0)
+                    state, F = cand, F1
+                    accepted = True
+                    break
+                lam = lam * nu
+                nu = 2.0 * nu
+            if not accepted:
                 break
-            lam = lam * nu
-            nu = 2.0 * nu
-        if not accepted:
-            break
-        n_accepted += 1
+            n_accepted += 1
     return LMResult(
         state=state, cost=F, initial_cost=F0_init, lam=lam,
         n_accepted=n_accepted, n_solves=n_solves,
@@ -218,7 +221,7 @@ def lm_optimize_flat_batched(
     k = 0
     while k < max_steps:
         alive = ~stop & (n_acc < n_iterations)
-        if not bool(alive.any()):
+        if not tracing.read(alive.any(), bool):
             break
         solve_b, g_b, diag_max_b = make_step_batched(state)
         lam0 = torch.where(lam < 0, TAU * diag_max_b, lam)

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import camera as cam_ops
 from ..ops import lie
 from ..ops import mesh as mesh_ops
@@ -41,12 +42,12 @@ def _f32(x, device):
 
 def _abs_pixel_errors(cam_kind, cam_params, R, t, p, kp, device):
     pc = lie.apply(_f32(R, device), _f32(t, device), _f32(p, device))
-    proj = cam_ops.project(cam_kind, _f32(cam_params, device), pc).cpu().numpy()
+    proj = tracing.read(cam_ops.project(cam_kind, _f32(cam_params, device), pc))
     return np.abs(np.asarray(kp) - proj)
 
 
 def _np(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return tracing.read(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def pixels_stand_dev(cam_kind, cam_params, T1w, T2w, p1, p2, kp1, kp2, valid, device="cuda") -> PixelsError:
@@ -204,7 +205,7 @@ def relative_map_errors(T1w, T2w, p1, p2, s1, s2, d1, d2, valid, Rg, tg, device=
     glob = np.where(mask, (gd**2).sum(-1), 0.0)
 
     def z_of(T, p):
-        return lie.apply(_f32(T[0], device), _f32(T[1], device), _f32(p, device)).cpu().numpy()[:, 2]
+        return tracing.read(lie.apply(_f32(T[0], device), _f32(T[1], device), _f32(p, device)))[:, 2]
 
     z1 = z_of(T1w, p1v)
     z2 = z_of(T2w, p2v)
