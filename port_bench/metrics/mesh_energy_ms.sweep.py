@@ -1,0 +1,8 @@
+"""The program's ``cost.mesh_energy`` spans (the mesh-edge energies inside the robust cost) per inner solve (ms): the spans that ended at or before the window's close, as ``drivers/sweep_energy.py`` collects them. Nothing to read without the program's recording or where the program has no such span."""
+
+
+def read(rec):
+    s = rec.get("program_window", {}).get("cost.mesh_energy")
+    if rec.get("kind") != "sweep" or s is None:
+        return None
+    return 1e3 * s["total_s"] / rec["inner_solves"]

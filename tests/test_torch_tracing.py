@@ -112,6 +112,19 @@ def test_spans_count_what_the_lm_loop_counts(backend, monkeypatch):
     assert rec["kernels"] == {"kernel1": {"launches": 0, "device_s": 0.0}, "kernel2": {"launches": 0, "device_s": 0.0}}
 
 
+def test_ogden_mesh_spans_count_once_per_assembly_and_cost():
+    """A dense Ogden inner solve: one ``assembly.mesh_jacobian`` inside each
+    ``assembly`` and one ``cost.mesh_energy`` inside each ``cost``."""
+    data, state, hyper = torch_problem(deforming_problem())
+    res, rec = _on(lambda: deformable.solve_pair("KB8", data, hyper, state, 8, deformable.MODELS["HyperElasticOdgen"]))
+    spans, raw = rec["spans"], rec["raw"]
+    assert spans["assembly.mesh_jacobian"]["calls"] == spans["assembly"]["calls"] >= res.n_accepted > 0
+    assert spans["cost.mesh_energy"]["calls"] == spans["cost"]["calls"] == res.n_solves + 1
+    for i, s in enumerate(raw):
+        if s[0] in ("assembly.mesh_jacobian", "cost.mesh_energy"):
+            assert raw[s[3]][0] == s[0].split(".")[0]
+
+
 def test_rigid_selection_counts():
     data, state, hyper = torch_problem(rigid_problem(n_side=5))
     stats = outer.SolveStats()

@@ -287,7 +287,8 @@ def robust_cost(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, s
         cost_depth = torch.sum(vm * info_d * (ed1 * ed1 + ed2 * ed2))
 
         info_a = hyper.arap_w * data.ntri * data.ntri
-        E = _arap_energies(data, state, spec, hyper, src)
+        with tracing.span("cost.mesh_energy"):
+            E = _arap_energies(data, state, spec, hyper, src)
         cost = cost_rep + cost_depth + torch.sum(info_a * E * E)
 
         if spec.depth in ("scaled", "scaled_squared"):
@@ -342,7 +343,9 @@ def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: Mo
                         src: NeighbourSource = None):
     """Weighted energy r [N*K] of every directed mesh-edge slot and its
     Jacobian L [N*K, 18] over (p1_i, p2_i, p1_j, p2_j, xi), by forward-mode
-    AD of the batched edge energy; masked slots carry exact zeros."""
+    AD of the batched edge energy; masked slots carry exact zeros. The
+    dense and block assemblies of every family but ARAP's block path call
+    it; with tracing on it is the span ``assembly.mesh_jacobian``."""
     n, K = data.nbr.shape
     dtype, dev = state.p1.dtype, state.p1.device
     p1s, p2s, Ris, valids = _neighbours(data, state, src)
@@ -372,9 +375,10 @@ def _mesh_slot_jacobian(data: PairData, hyper: Hyper, state: PairState, spec: Mo
     # One forward-mode JVP per local coordinate, vmapped over the 18
     # coordinates (each edge's energy depends only on its own row of
     # x_edges, so the JVP along e_k is column k of every row's Jacobian).
-    basis = torch.eye(18, dtype=dtype, device=dev)[:, None, :].expand(18, n * K, 18)
-    L = vmap(lambda v: jvp(local, (x_edges,), (v,))[1])(basis).T
-    return L, local(x_edges)
+    with tracing.span("assembly.mesh_jacobian"):
+        basis = torch.eye(18, dtype=dtype, device=dev)[:, None, :].expand(18, n * K, 18)
+        L = vmap(lambda v: jvp(local, (x_edges,), (v,))[1])(basis).T
+        return L, local(x_edges)
 
 
 def _edge_blocks(cam_kind: str, data: PairData, hyper: Hyper, state: PairState, spec: ModelSpec = ModelSpec()):
